@@ -1,0 +1,162 @@
+"""PyTorch port, serving slice: CIKM_Model with the JAX package's parameters
+(carried over by params_from_jax) gives the same embeddings, metrics and
+top-k as the JAX package on the same synthetic dataset."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tests.conftest import make_config
+
+RTOL, ATOL = 1e-5, 1e-6   # float32 SpMM sums taken in other orders
+# params are scaled up so that scores spread well beyond float32 noise and
+# the premise below (no pos/neg score pair closer than 1e-4) holds
+PARAM_SCALE = 8.0
+
+
+@pytest.fixture(scope="module")
+def served(synth_root):
+    from foodrec_tpu.data.dataset import FoodData as JFoodData
+    from foodrec_tpu.data.device import DeviceData as JDeviceData
+    from foodrec_tpu.models import get_model as jget_model
+    from foodrec_tpu_torch.config import Config
+    from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
+    from foodrec_tpu_torch.data.device import DeviceData
+    from foodrec_tpu_torch.models import get_model
+    from foodrec_tpu_torch.utils.weights import params_from_jax
+
+    jcfg, meta = make_config(synth_root, model="CIKM_Model")
+    jdata = JFoodData(jcfg)
+    jdata.device_data = JDeviceData.from_food_data(jdata, jcfg)
+    jmodel = jget_model("CIKM_Model")(jcfg, jdata)
+    jparams = jax.device_get(jmodel.init_params(jax.random.PRNGKey(0)))
+    for k in ("user_embedding", "item_embedding", "ingre_embedding"):
+        jparams[k] = np.asarray(jparams[k]) * np.float32(PARAM_SCALE)
+
+    root = synth_root[0]
+    cfg = Config("CIKM_Model", "Synth", {
+        "data_path": root.rsplit("/Synth", 1)[0] + "/",
+        "neg_sample_num": meta["neg_num"], "use_gpu": False})
+    derive_data_paths(cfg, "Synth")
+    data = FoodData(cfg)
+    dd = DeviceData.from_food_data(data)
+    model = get_model("CIKM_Model")(cfg, data)
+    state, unported = params_from_jax(jparams, model)
+    model.load_state_dict(state)
+    return dict(jcfg=jcfg, jdata=jdata, jmodel=jmodel, jparams=jparams,
+                cfg=cfg, dd=dd, model=model, data=data, unported=unported)
+
+
+def test_unported_leaves_are_reported(served):
+    assert served["unported"] == [
+        "encoder", "mm_target_atten", "ingre_target_atten", "health_mlp",
+        "image_trs", "text_trs", "image_embedding", "text_embedding"]
+    assert sorted(served["model"].state_dict()) == [
+        "ingre_embedding", "item_embedding", "user_embedding"]
+
+
+def test_params_from_jax_rejects_bad_trees(served):
+    from foodrec_tpu_torch.utils.weights import params_from_jax
+
+    params = dict(served["jparams"])
+    with pytest.raises(KeyError, match="unknown"):
+        params_from_jax({**params, "mystery": np.zeros(3)}, served["model"])
+    params["item_embedding"] = params["item_embedding"][:-1]
+    with pytest.raises(ValueError, match="item_embedding"):
+        params_from_jax(params, served["model"])
+
+
+@pytest.mark.parametrize("impl", ["auto", "segment", "kernel"])
+def test_eval_cache_matches_jax(served, impl):
+    from foodrec_tpu_torch.models import get_model
+
+    cfg = served["cfg"]
+    cfg["spmm_impl"] = impl
+    try:
+        model = get_model("CIKM_Model")(cfg, served["data"])
+    finally:
+        cfg["spmm_impl"] = "auto"
+    model.load_state_dict(served["model"].state_dict())
+    user, item = model.eval_cache()
+    juser, jitem = served["jmodel"].eval_cache(served["jparams"])
+    np.testing.assert_allclose(user.numpy(), np.asarray(juser),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(item.numpy(), np.asarray(jitem),
+                               rtol=RTOL, atol=ATOL)
+    assert not user.requires_grad
+
+
+def _metric_inputs(seed):
+    rng = np.random.default_rng(seed)
+    b, c, neg_num = 9, 64, 40
+    n_pos = rng.integers(0, 8, size=b).astype(np.int32)
+    n_cand = (n_pos + rng.integers(10, c - 8, size=b)).astype(np.int32)
+    scores = rng.normal(size=(b, c)).astype(np.float32)
+    # coarse grid: many exact ties between positives and negatives
+    scores[:4] = np.round(scores[:4] * 2) / 2
+    scores[4] = 0.25  # one user with every score tied: positives win
+    return scores, n_pos, n_cand, neg_num
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_by_user_metrics_exactly_equal_to_jax(seed):
+    from foodrec_tpu.engine.evaluator import by_user_metrics as jmetrics
+    from foodrec_tpu_torch.engine.evaluator import by_user_metrics
+
+    scores, n_pos, n_cand, neg_num = _metric_inputs(seed)
+    want = jmetrics(scores, n_pos, n_cand, neg_num=neg_num)
+    got = by_user_metrics(torch.from_numpy(scores),
+                          torch.from_numpy(n_pos).long(),
+                          torch.from_numpy(n_cand).long(), neg_num=neg_num)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        g, w = got[k].numpy(), np.asarray(w := want[k])
+        assert g.dtype == np.float32, k
+        assert np.array_equal(g, w), (k, g, w)
+    tied = 4
+    if n_pos[tied]:
+        assert got["recall@20"][tied] == min(20, n_pos[tied]) / n_pos[tied]
+        assert got["auc"][tied] == 0
+
+
+def test_trainer_evaluate_matches_jax(served):
+    from foodrec_tpu.engine.trainer import Trainer as JTrainer
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    jmodel, jparams = served["jmodel"], served["jparams"]
+    jdd = served["jdata"].device_data
+    for split, is_test in (("eval_valid", False), ("eval_test", True)):
+        es = getattr(jdd, split)
+        # premise: the f32 score differences between the two frameworks
+        # (~1e-6) cannot reorder any positive/negative pair
+        cache = jmodel.eval_cache(jparams)
+        scores = np.asarray(jmodel.score_from_cache(jparams, cache, es.users,
+                                                    es.cand))
+        for b in range(es.n_users):
+            p, c = es.n_pos[b], es.n_cand[b]
+            if p:
+                gap = np.abs(scores[b, :p, None] - scores[b, None, p:c]).min()
+                assert gap > 1e-4, (split, b, gap)
+        want = JTrainer(served["jcfg"], jmodel).evaluate(jparams, es,
+                                                          is_test=is_test)
+        got = Trainer(served["cfg"], served["model"]).evaluate(
+            getattr(served["dd"], split), is_test=is_test)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert abs(got[k] - float(want[k])) <= 1e-6, (split, k)
+
+
+def test_full_sort_topk_indices_equal_jax(served):
+    from foodrec_tpu.engine.topk_evaluator import full_sort_topk as jtopk
+    from foodrec_tpu_torch.engine.topk_evaluator import full_sort_topk
+
+    jmodel, jparams, model = served["jmodel"], served["jparams"], served["model"]
+    n_items, users, k = model.n_items, np.arange(model.n_users), 10
+    jcache = jmodel.eval_cache(jparams)
+    want = jtopk(lambda u, c: jmodel.score_from_cache(jparams, jcache, u, c),
+                 users, n_items, k, user_batch=8, item_chunk=16)
+    cache = model.eval_cache()
+    got = full_sort_topk(lambda u, i: model.score_items(cache, u, i), users,
+                         n_items, k, user_batch=8, item_chunk=16, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
