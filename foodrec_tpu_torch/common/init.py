@@ -1,6 +1,6 @@
 # coding: utf-8
-"""Parameter initializers with torch fan semantics (counterpart of
-`foodrec_tpu/common/init.py`).
+"""Parameter initializers with torch fan semantics, and the linear layer
+(counterpart of `foodrec_tpu/common/init.py`).
 
 torch's xavier_* on an Embedding(num, dim) treats the table as a [num, dim]
 linear weight: fan_in = dim, fan_out = num. Values are drawn on the CPU from
@@ -29,3 +29,33 @@ def xavier_uniform(shape, generator, gain=1.0):
     bound = gain * math.sqrt(6.0 / (fan_in + fan_out))
     return torch.empty(shape, dtype=torch.float32).uniform_(
         -bound, bound, generator=generator)
+
+
+def xavier_normal(shape, generator, gain=1.0):
+    """N(0, std) with std = gain * sqrt(2 / (fan_in + fan_out)), float32 on
+    the CPU."""
+    fan_in, fan_out = _torch_fans(shape)
+    std = gain * math.sqrt(2.0 / (fan_in + fan_out))
+    return std * torch.randn(shape, dtype=torch.float32, generator=generator)
+
+
+def linear_params(d_in, d_out, generator, init=xavier_normal):
+    """A {'w': [in, out], 'b': [out]} linear layer with a zero bias (the
+    reference's xavier initializers, init.py:7-42). The weight is stored
+    [in, out] as the JAX package stores it; the initializer sees torch's
+    [out, in] fans."""
+    return {"w": init((d_out, d_in), generator).T.contiguous(),
+            "b": torch.zeros(d_out)}
+
+
+def torch_linear(d_in, d_out, generator, init=xavier_normal):
+    """nn.Linear(d_in, d_out) with its weight re-drawn by `init` and torch's
+    own bias init U(-1/sqrt(d_in), 1/sqrt(d_in)) (cikm_model.py:70-75)."""
+    w = init((d_out, d_in), generator).T.contiguous()
+    bound = 1.0 / math.sqrt(d_in)
+    b = torch.empty(d_out).uniform_(-bound, bound, generator=generator)
+    return {"w": w, "b": b}
+
+
+def linear_apply(p, x):
+    return x @ p["w"] + p["b"]

@@ -1,0 +1,183 @@
+# coding: utf-8
+"""Attention and MLP blocks of CIKM_Model, plain PyTorch (counterpart of
+`foodrec_tpu/common/module.py`).
+
+  * `transformer_encoder_*`: torch nn.TransformerEncoder semantics (post-LN,
+    multi-head attention with a key-padding mask), written out in einsums as
+    the JAX package writes it -- the ingredient encoder
+    (cikm_model.py:27-32, 228-238).
+  * `target_attention_*`: multi-head attention with a per-head LayerNorm on
+    Q and K and the additive -2^32+1 padding mask (cikm_model.py:311-369).
+  * `mlp_2layer_*`: Linear, ReLU, Linear.
+
+Parameters are dicts of tensors in the JAX package's layout (linear weights
+[in, out]); the model wraps them as `nn.ParameterDict`s. Dropout draws from
+an explicit `torch.Generator` on the tensors' device.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from foodrec_tpu_torch.common.init import (
+    linear_apply,
+    linear_params,
+    xavier_uniform,
+)
+
+
+def gelu(x):
+    """The exact erf GELU written out, x * (1 + erf(x / sqrt(2))) / 2, as the
+    reference's formula (module.py:13-22) and the JAX package take it; not
+    the tanh approximation. F.gelu's fused CPU kernel computes the same
+    function with more float32 rounding error."""
+    return 0.5 * x * (1.0 + torch.erf(x * (1.0 / math.sqrt(2.0))))
+
+
+ACT = {
+    "relu": torch.relu,
+    "gelu": gelu,
+    "swish": F.silu,
+}
+
+# target attention's additive pad value -2^32+1, taken as float32 (where it
+# rounds to -2^32) as the JAX package takes it (module.py:167)
+_TARGET_PAD = float(torch.tensor(-(2.0 ** 32) + 1, dtype=torch.float32))
+
+
+def layer_norm(x, gamma, beta, eps=1e-5):
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, correction=0)  # biased, as jnp.var
+    return gamma * (x - mu) * torch.rsqrt(var + eps) + beta
+
+
+def dropout(x, rate, generator):
+    """Inverted dropout: keep with probability 1 - rate, scale by 1/(1-rate)."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# torch nn.TransformerEncoder semantics
+# ---------------------------------------------------------------------------
+
+
+def transformer_encoder_params(generator, d_model, dim_ff, n_layers):
+    """Per-layer params as the reference's xavier_uniform re-init pass leaves
+    them (cikm_model.py:81): xavier_uniform weights, zero biases, LayerNorms
+    (1, 0)."""
+    layers = []
+    for _ in range(n_layers):
+        def w(d_out, d_in):
+            return xavier_uniform((d_out, d_in), generator).T.contiguous()
+
+        layers.append({
+            "in_proj_w": w(3 * d_model, d_model),
+            "in_proj_b": torch.zeros(3 * d_model),
+            "out_proj_w": w(d_model, d_model),
+            "out_proj_b": torch.zeros(d_model),
+            "ff1_w": w(dim_ff, d_model),
+            "ff1_b": torch.zeros(dim_ff),
+            "ff2_w": w(d_model, dim_ff),
+            "ff2_b": torch.zeros(d_model),
+            "ln1_g": torch.ones(d_model), "ln1_b": torch.zeros(d_model),
+            "ln2_g": torch.ones(d_model), "ln2_b": torch.zeros(d_model),
+        })
+    return layers
+
+
+def _mha(p, x, nhead, pad_mask, drop_rate, generator):
+    """Multi-head self-attention: x [B, L, D], pad_mask [B, L] True at
+    padding; -inf at padded keys."""
+    b, L, d = x.shape
+    dh = d // nhead
+    qkv = x @ p["in_proj_w"] + p["in_proj_b"]          # [B, L, 3D]
+    q, k, v = qkv.split(d, dim=-1)
+
+    def heads(t):
+        return t.reshape(b, L, nhead, dh).transpose(1, 2)  # [B, H, L, dh]
+
+    q, k, v = heads(q), heads(k), heads(v)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(dh)
+    if pad_mask is not None:
+        logits = torch.where(pad_mask[:, None, None, :], -math.inf, logits)
+    attn = torch.softmax(logits, dim=-1)
+    # a fully padded row softmaxes to NaN; keep it finite (module.py:100-102)
+    attn = torch.where(torch.isnan(attn), 0.0, attn)
+    attn = dropout(attn, drop_rate, generator)
+    out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
+    out = out.transpose(1, 2).reshape(b, L, d)
+    return out @ p["out_proj_w"] + p["out_proj_b"]
+
+
+def transformer_encoder_apply(params, x, nhead, pad_mask=None, act="gelu",
+                              drop_rate=0.0, generator=None):
+    """Post-LN encoder stack (torch's default norm_first=False):
+    x = LN1(x + Drop(MHA(x))); x = LN2(x + Drop(FF2(Drop(Act(FF1(x))))))."""
+    act_fn = ACT[act]
+    for p in params:
+        a = _mha(p, x, nhead, pad_mask, drop_rate, generator)
+        x = layer_norm(x + dropout(a, drop_rate, generator),
+                       p["ln1_g"], p["ln1_b"])
+        h = act_fn(x @ p["ff1_w"] + p["ff1_b"])
+        h = dropout(h, drop_rate, generator)
+        h = h @ p["ff2_w"] + p["ff2_b"]
+        x = layer_norm(x + dropout(h, drop_rate, generator),
+                       p["ln2_g"], p["ln2_b"])
+    return x
+
+
+# ---------------------------------------------------------------------------
+# target attention (cikm_model.py:311-369)
+# ---------------------------------------------------------------------------
+
+
+def target_attention_params(num_split):
+    """Only the per-head LayerNorm carries parameters: the reference's q/k/v
+    linears are dead weight (linear_projection=False in both uses)."""
+    return {"ln_g": torch.ones(num_split), "ln_b": torch.zeros(num_split)}
+
+
+def target_attention_apply(p, query, kv, num_head, seq_ids=None,
+                           padding_idx=None):
+    """query [B, Lq, D], kv [B, Lk, D] -> [B, Lq, D].
+
+    Per-head LayerNorm (eps 1e-12) on Q and K, scaled dot product, and an
+    optional key padding mask from seq_ids == padding_idx."""
+    b, lq, d = query.shape
+    lk = kv.shape[1]
+    dh = d // num_head
+
+    def heads(t, L):
+        return t.reshape(b, L, num_head, dh).transpose(1, 2)
+
+    q = layer_norm(heads(query, lq), p["ln_g"], p["ln_b"], eps=1e-12)
+    k = layer_norm(heads(kv, lk), p["ln_g"], p["ln_b"], eps=1e-12)
+    v = heads(kv, lk)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * (dh ** -0.5)
+    if seq_ids is not None:
+        pad = seq_ids == padding_idx                      # [B, Lk]
+        logits = torch.where(pad[:, None, None, :], _TARGET_PAD, logits)
+    attn = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
+    return out.transpose(1, 2).reshape(b, lq, d)
+
+
+# ---------------------------------------------------------------------------
+# two-layer MLP (reference: FoodRec/common/module.py:197-263)
+# ---------------------------------------------------------------------------
+
+
+def mlp_2layer_params(generator, d_in, d_hidden, d_out):
+    """nn.Sequential(Linear, ReLU, Linear) re-initialized to xavier_uniform
+    weights and zero biases by the model's init pass."""
+    return {"l1": linear_params(d_in, d_hidden, generator, init=xavier_uniform),
+            "l2": linear_params(d_hidden, d_out, generator, init=xavier_uniform)}
+
+
+def mlp_2layer_apply(p, x):
+    return linear_apply(p["l2"], torch.relu(linear_apply(p["l1"], x)))

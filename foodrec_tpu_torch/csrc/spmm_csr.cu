@@ -17,6 +17,11 @@
 // row is written once, empty rows get zeros, and there are no atomics, so the
 // result is bitwise deterministic from run to run.
 //
+// The same kernel is the backward, as the Pallas kernel is under the JAX
+// package's custom VJP (spmm.py:255-276): d/dx (A @ x) = A^T @ g, launched on
+// A^T's CSR tables by the autograd Function SpmmCSR (ops/spmm.py). Both CIKM
+// graphs are symmetric, so there A^T is A and the backward reads A's tables.
+//
 // Bound: bytes. The compulsory traffic is nnz*8 (cols + vals) + (n+1)*4
 // (row_ptr) + n*d*4 (x, read once: at Foodcom scale x is <= 9.6 MB and sits
 // in the 50 MB L2) + n*d*4 (y) -- about 22.4 MB for the user-item graph

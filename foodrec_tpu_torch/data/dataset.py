@@ -1,20 +1,23 @@
 # coding: utf-8
-"""Host-side dataset layer: the on-disk FoodRec data contract, serving part.
+"""Host-side dataset layer: the on-disk FoodRec data contract, the part that
+CIKM_Model's training and serving read.
 
 Counterpart of `foodrec_tpu/data/dataset.py` (reference
-FoodRec/utils/dataset.py:11-370) with the attributes serving reads, parsed
-with numpy alone (no pandas, no native extension):
+FoodRec/utils/dataset.py:11-370), parsed with numpy alone (no pandas, no
+native extension):
 
   data.{train,valid,test}.rating    tab-separated "user \t item \t rating ..."
   data.{valid,test}.negative        "(u:[...])\t neg1 ... negK" per user row
+  data_image_features_float.npy     [n_items, 2048] float (memory-mapped)
+  data_text_features_t5.npy         [n_items, 512] float (memory-mapped)
   data_ingre_code_file.npy          [n_items, 20] int, pad id = n_ingredients
   data_id_ingre_num_file            "item \t count" per line
   inter_coo_matrix.pkl              scipy.sparse train COO
   ri_graph.txt                      recipe-ingredient int pairs (small_ingre)
   recipe_health_level_multi_hot_dict.pkl
 
-The modality feature tables, the other graphs, the study splits and the
-per-user training dicts arrive with training (ROADMAP.md).
+The other graphs, the study splits and the per-user training dicts are not
+ported yet (ROADMAP.md).
 """
 
 import os
@@ -61,20 +64,24 @@ def _read_negative_file(path):
 
 
 class FoodData:
-    """The dataset attributes that serving reads (reference: dataset.py:11-370)."""
+    """The dataset attributes CIKM_Model reads (reference: dataset.py:11-370)."""
 
     def __init__(self, config):
         self.args_config = config
         interaction_path = config["interaction_data_path"]
         ingre_path = config["ingre_data_path"]
 
-        tr_u, tr_i, _ = _read_rating_file(interaction_path + "data.train.rating")
+        tr_u, tr_i, tr_r = _read_rating_file(interaction_path + "data.train.rating")
         va_u, va_i, _ = _read_rating_file(interaction_path + "data.valid.rating")
         te_u, te_i, _ = _read_rating_file(interaction_path + "data.test.rating")
 
         # train-file-derived shape (dataset.py:157-176)
         self.num_users = int(tr_u.max()) + 1
         self.num_items = int(tr_i.max()) + 1
+        # implicit 0/1: only rating > 0 trains (dataset.py:92-94)
+        keep = tr_r > 0
+        self._train_u = tr_u[keep]
+        self._train_i = tr_i[keep]
 
         self.testRatings, _ = _group_by_consecutive_user(te_u, te_i)
         self.testNegatives = _read_negative_file(
@@ -88,11 +95,24 @@ class FoodData:
         if len(self.validRatings) != len(self.validNegatives):
             raise ValueError("valid ratings and negatives cover different users")
 
+        # valid and test positives per user, excluded from negative sampling
+        # (dataset.py:115-119)
+        self.validTestRatings = {u: set() for u in range(self.num_users)}
+        for u, i in zip(np.concatenate([va_u, te_u]).tolist(),
+                        np.concatenate([va_i, te_i]).tolist()):
+            self.validTestRatings[u].add(i)
+
         # id ranges over all splits (dataset.py:218-231)
         users = np.concatenate([tr_u, va_u, te_u])
         items = np.concatenate([tr_i, va_i, te_i])
         self.n_users = int(users.max() - users.min() + 1)
         self.n_items = int(items.max() - items.min() + 1)
+
+        # memory-mapped: the image table is 245 MB at Foodcom scale
+        self.embImage = np.load(
+            interaction_path + "data_image_features_float.npy", mmap_mode="r")
+        self.embText = np.load(ingre_path + "data_text_features_t5.npy",
+                               mmap_mode="r")
 
         self.ingredientNum = self._load_ingredient_num(
             ingre_path + "data_id_ingre_num_file")

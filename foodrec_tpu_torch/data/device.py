@@ -1,15 +1,23 @@
 # coding: utf-8
-"""Device-ready dataset arrays for serving (counterpart of
-`foodrec_tpu/data/device.py`).
+"""Device-ready dataset arrays (counterpart of `foodrec_tpu/data/device.py`).
 
-Eval candidate sets are one padded [U, C] block per split (replaces the
-reference's per-user generator EvalByUserDataloader, dataloader.py:228-302),
-built with vectorized numpy instead of the JAX package's native assembler.
-The exclusion bitmap, the sampling buckets and the item side tables
-(ingredient codes, health multi-hot) arrive with training.
+  * train interactions as flat int32 arrays
+  * a packed uint32 positive bitmap per user (train and valid/test positives)
+    for the on-device negative sampler (replaces the reference's rejection
+    test, dataloader.py:145-151)
+  * the item side tables (image, text, ingredient codes and counts, health
+    multi-hot) that the model gathers per batch
+  * eval candidate sets as one padded [U, C] block per split (replaces the
+    reference's per-user generator EvalByUserDataloader,
+    dataloader.py:228-302)
+
+Built with vectorized numpy instead of the JAX package's native extension.
+The health-stratified sampling buckets and the cal/health levels are not
+ported yet (ROADMAP.md).
 """
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -81,28 +89,81 @@ def build_eval_set(users, ratings, negatives, pad_multiple=128):
                    n_cand=(pos_len + n_keep).astype(np.int32))
 
 
+def _pack_bitmap(pairs_u, pairs_i, n_users, n_items):
+    """bit i of row u set for every (u, i) pair: uint32 [n_users,
+    ceil(n_items / 32)]."""
+    words = _round_up(n_items, 32) // 32
+    bitmap = np.zeros((n_users, words), dtype=np.uint32)
+    np.bitwise_or.at(bitmap, (pairs_u, pairs_i >> 5),
+                     np.uint32(1) << (pairs_i & 31).astype(np.uint32))
+    return bitmap
+
+
 @dataclasses.dataclass
 class DeviceData:
-    """The arrays serving needs, as host numpy ready for the device."""
+    """The arrays a model and its trainer need, as host numpy ready for the
+    device."""
 
     n_users: int
     n_items: int
-    num_users: int      # train-file derived (dataset.py:30)
-    num_items: int
+    num_users: int      # train-file derived (dataset.py:30); the sampler
+    num_items: int      # draws from [0, num_items) (dataloader.py:147)
     n_ingredients: int
+
+    train_u: np.ndarray           # int32 [n_train]
+    train_i: np.ndarray           # int32 [n_train]
+    excl_bitmap: np.ndarray       # uint32 [num_users, ceil(num_items/32)]
+
+    img: np.ndarray               # float32 [n_items, D_img]
+    txt: np.ndarray               # float32 [n_items, D_txt]
+    ingre_codes: np.ndarray       # int32 [n_items, 20]
+    ingre_num: np.ndarray         # int32 [n_items]
+    health_mh: Optional[np.ndarray]  # float32 [n_items, H], or None
 
     eval_valid: EvalSet
     eval_test: EvalSet
 
+    @property
+    def n_train(self):
+        return len(self.train_u)
+
     @classmethod
     def from_food_data(cls, dataset):
+        n_users, n_items = dataset.num_users, dataset.num_items
+        train_u = dataset._train_u.astype(np.int32)
+        train_i = dataset._train_i.astype(np.int32)
+
+        # exclusion = train positives and valid/test positives
+        # (dataloader.py:149)
+        ex_u, ex_i = [train_u.astype(np.int64)], [train_i.astype(np.int64)]
+        for u, items in dataset.validTestRatings.items():
+            if items:
+                ex_u.append(np.full(len(items), u, dtype=np.int64))
+                ex_i.append(np.fromiter(items, dtype=np.int64))
+        excl = _pack_bitmap(np.concatenate(ex_u), np.concatenate(ex_i),
+                            n_users, n_items)
+
+        health_mh = None
+        mh = getattr(dataset, "health_level_multi_hot", None)
+        if mh is not None:
+            health_mh = np.zeros((dataset.n_items, len(mh[0])),
+                                 dtype=np.float32)
+            for k, v in mh.items():
+                health_mh[k] = np.asarray(v, dtype=np.float32)
+
         eval_valid = build_eval_set(dataset.valid_users, dataset.validRatings,
                                     dataset.validNegatives)
-        eval_test = build_eval_set(list(range(dataset.num_users)),
+        eval_test = build_eval_set(list(range(n_users)),
                                    dataset.testRatings, dataset.testNegatives)
         return cls(
             n_users=dataset.n_users, n_items=dataset.n_items,
-            num_users=dataset.num_users, num_items=dataset.num_items,
+            num_users=n_users, num_items=n_items,
             n_ingredients=dataset.num_ingredients,
+            train_u=train_u, train_i=train_i, excl_bitmap=excl,
+            img=np.asarray(dataset.embImage, dtype=np.float32),
+            txt=np.asarray(dataset.embText, dtype=np.float32),
+            ingre_codes=np.asarray(dataset.ingredientCodeDict, dtype=np.int32),
+            ingre_num=np.asarray(dataset.ingredientNum, dtype=np.int32),
+            health_mh=health_mh,
             eval_valid=eval_valid, eval_test=eval_test,
         )

@@ -1,9 +1,17 @@
 # coding: utf-8
-"""Model contract for serving (counterpart of `foodrec_tpu/models/base.py`;
-reference FoodRec/common/abstract_recommender.py:8-91).
+"""Model contract (counterpart of `foodrec_tpu/models/base.py`; reference
+FoodRec/common/abstract_recommender.py:8-91).
 
 A model is an `nn.Module` that holds its parameters and, as registered
-buffers, its graph tables. Evaluation splits into
+buffers, its graph tables and item side tables. It reads its arrays from the
+dataset's `device_data` (a `DeviceData`, attached by the caller as in the
+JAX package). Training calls
+
+    calculate_loss(user, pos_item, neg_item, generator)
+                                          -> tuple of scalar losses, summed
+                                             for the gradient
+
+and evaluation splits into
 
     eval_cache()                          -> (user_emb, item_emb), the graph
                                              propagation, once per evaluation
@@ -21,11 +29,15 @@ class GeneralRecommender(nn.Module):
         super().__init__()
         self.config = config
         self.device = torch.device(config["device"])
+        self.dd = dataset.device_data
         self.n_users = dataset.n_users
         self.n_items = dataset.n_items
         self.embedding_size = config["embedding_size"]
 
     def forward(self):
+        raise NotImplementedError
+
+    def calculate_loss(self, user, pos_item, neg_item, generator=None):
         raise NotImplementedError
 
     @torch.no_grad()

@@ -36,8 +36,9 @@ KERNELS = {
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# kernel name -> number of launches since the caller last reset it
-launches = {name: 0 for name in KERNELS}
+# launch counts since the caller last reset them: one per kernel, and
+# `spmm_csr_bwd` for the launches of spmm_csr that compute a gradient
+launches = {**{name: 0 for name in KERNELS}, "spmm_csr_bwd": 0}
 
 _libs = {}
 
@@ -114,11 +115,12 @@ def _check(cond, msg):
         raise ValueError(f"spmm_csr: {msg}")
 
 
-def spmm_csr(row_ptr, cols, vals, x):
+def spmm_csr(row_ptr, cols, vals, x, count="spmm_csr"):
     """y = A @ x on the card: A in CSR (row_ptr int32 [n+1], cols int32
     [nnz], vals float32 [nnz]), x float32 [n_cols, d] contiguous with d even.
     Column ids are trusted to lie in [0, n_cols) (the graph builders make
-    them so)."""
+    them so). The launch adds one to `launches[count]`: "spmm_csr" for a
+    forward product, "spmm_csr_bwd" for a gradient (A^T @ g)."""
     dev = x.device
     _check(dev.type == "cuda", f"x must be on a CUDA device, got {dev}")
     for t, name in ((row_ptr, "row_ptr"), (cols, "cols"), (vals, "vals")):
@@ -136,6 +138,7 @@ def spmm_csr(row_ptr, cols, vals, x):
     _check(n >= 0, "row_ptr must hold n+1 entries")
     _check(d % 2 == 0, f"d must be even, got {d}")
     _check(x.data_ptr() % 8 == 0, "x must be 8-byte aligned")
+    _check(count in launches, f"unknown launch count {count!r}")
     y = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0 or d == 0:
         return y
@@ -146,5 +149,5 @@ def spmm_csr(row_ptr, cols, vals, x):
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr launch failed with CUDA error {err}")
-    launches["spmm_csr"] += 1
+    launches[count] += 1
     return y

@@ -1,9 +1,10 @@
 # coding: utf-8
 """Host-side graph preprocessing: one-time normalized-adjacency builds.
 
-A copy of the builders of `foodrec_tpu/ops/graph.py` that serving uses, so
+A copy of the builders of `foodrec_tpu/ops/graph.py` that CIKM_Model uses, so
 rows, cols and vals come out bit-identical (f64 degrees, then f32 values),
-plus the CSR row pointer the CUDA SpMM reads.
+plus the CSR row pointer the CUDA SpMM reads, and `transpose_adjacency` for
+the SpMM backward of a graph that is not symmetric.
 
 Normalization semantics (reference cikm_model.py:166-172): symmetric,
 d = binary_degree + 1e-7 ; val(r,c) = d[r]^-1/2 * d[c]^-1/2 over the
@@ -72,8 +73,10 @@ def _to_ell(rows, cols, vals, n_nodes):
 ELL_DEGREE_CAP = 96  # above this, the padded table wastes memory on power-law rows
 
 
-def _build(rows, cols, vals, n_nodes, symmetric=False):
-    vals = vals.astype(np.float32)
+def _build(rows, cols, vals, n_nodes, symmetric=False, vals_dtype=np.float32):
+    """vals_dtype=None keeps the values' own dtype (see transpose_adjacency)."""
+    if vals_dtype is not None:
+        vals = vals.astype(vals_dtype)
     rows, cols, vals = _to_sorted_coo(
         rows.astype(np.int64), cols.astype(np.int64), vals)
     counts = np.bincount(rows, minlength=n_nodes)
@@ -100,6 +103,16 @@ def sym_normalized_adjacency(rows, cols, n_nodes):
     vals = d[rows] * d[cols]
     # symmetrized edge set + symmetric values -> A == A^T
     return _build(rows, cols, vals, n_nodes, symmetric=True)
+
+
+def transpose_adjacency(adj):
+    """A^T as its own row-sorted NormalizedAdjacency (the SpMM backward of a
+    graph that is not symmetric; a symmetric one is its own transpose)."""
+    if adj.symmetric:
+        return adj
+    # vals_dtype=None: vals already carry their final dtype -- re-casting to
+    # f32 here would round only the BACKWARD adjacency of an f64 graph
+    return _build(adj.cols, adj.rows, adj.vals, adj.n_nodes, vals_dtype=None)
 
 
 def bipartite_offset_edges(triples, offset_head=0, offset_tail=0):

@@ -8,18 +8,24 @@ Three implementations behind one `Propagator` module:
                   Chosen when the padding is small (n * max_degree <= 1.5 nnz).
   * `segment`  -- sorted-COO gather + `index_add_`, plain torch.
   * `kernel`   -- the hand-written CUDA CSR SpMM (csrc/spmm_csr.cu), the port
-                  of the Pallas kernel `_spmm_pallas_kernel`. On a CPU tensor
-                  its wrapper runs the plain CSR version instead; on a CUDA
-                  tensor it launches the kernel or raises.
+                  of the Pallas kernel `_spmm_pallas_kernel`, inside the
+                  autograd Function `SpmmCSR`: the forward is the kernel on A,
+                  the backward the same kernel on A^T (A itself for a
+                  symmetric graph), as the JAX package's custom VJP does
+                  (foodrec_tpu/ops/spmm.py:255-276). On a CPU tensor both run
+                  the plain CSR version instead; on a CUDA tensor they launch
+                  the kernel or raise.
 
-`ell` and `segment` are the kernel's plain versions: the CPU tests use them
-and `chip_smoke.py` holds the kernel against them on the card.
+`ell` and `segment` are the kernel's plain versions, differentiated by plain
+torch autograd: the CPU tests use them and `chip_smoke.py` holds the kernel
+against them on the card, forward and backward.
 """
 
 import torch
 from torch import nn
 
 from foodrec_tpu_torch.ops import _kernels
+from foodrec_tpu_torch.ops.graph import transpose_adjacency
 from foodrec_tpu_torch.utils.device import resolve_device
 
 
@@ -44,17 +50,32 @@ def spmm_csr_plain(row_ptr, cols, vals, x):
     return spmm_coo(rows, cols.long(), vals, x, n)
 
 
-def spmm_csr(row_ptr, cols, vals, x):
-    """y = A @ x for CSR A: the CUDA kernel for a CUDA x, its plain version
-    for a CPU x. The kernel has no backward yet (it arrives with training),
-    so an x that needs a gradient raises instead of losing it."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError(
-            "spmm_csr has no backward yet (ROADMAP: SpMM autograd.Function); "
-            "call it under torch.no_grad() or use impl='segment'")
+def spmm_csr(row_ptr, cols, vals, x, count="spmm_csr"):
+    """y = A @ x for CSR A: the CUDA kernel for a CUDA x (counted under
+    `count`), its plain version for a CPU x. No autograd: see SpmmCSR."""
     if x.device.type == "cpu":
         return spmm_csr_plain(row_ptr, cols, vals, x)
-    return _kernels.spmm_csr(row_ptr, cols, vals, x)
+    return _kernels.spmm_csr(row_ptr, cols, vals, x, count=count)
+
+
+class SpmmCSR(torch.autograd.Function):
+    """y = A @ x with d/dx = A^T @ g, both through `spmm_csr`. The adjacency
+    gets no gradient. For a symmetric A the caller passes A's own tables as
+    A^T's (no second table, no copy)."""
+
+    @staticmethod
+    def forward(ctx, x, row_ptr, cols, vals, t_row_ptr, t_cols, t_vals):
+        ctx.save_for_backward(t_row_ptr, t_cols, t_vals)
+        return spmm_csr(row_ptr, cols, vals, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        t_row_ptr, t_cols, t_vals = ctx.saved_tensors
+        # g may arrive strided or as an expanded zero tensor (the slices of a
+        # propagated table); the kernel takes a contiguous x
+        gx = spmm_csr(t_row_ptr, t_cols, t_vals, g.contiguous(),
+                      count="spmm_csr_bwd")
+        return gx, None, None, None, None, None, None
 
 
 def select_impl(adj, impl, device):
@@ -77,7 +98,8 @@ def select_impl(adj, impl, device):
 class Propagator(nn.Module):
     """y = A @ x with a chosen implementation; the edge tables are
     non-persistent buffers on `device`, so they follow `.to()` but stay out
-    of the state_dict."""
+    of the state_dict. The kernel impl also holds A^T's CSR tables for its
+    backward, built once on the host unless A is symmetric."""
 
     def __init__(self, adj, impl="auto", compute_dtype=None, device="cuda"):
         super().__init__()
@@ -106,13 +128,21 @@ class Propagator(nn.Module):
             buf("row_ptr", adj.row_ptr, torch.int32)
             buf("cols", adj.cols, torch.int32)
             buf("vals", adj.vals, torch.float32)
+            if not adj.symmetric:
+                adj_t = transpose_adjacency(adj)
+                buf("t_row_ptr", adj_t.row_ptr, torch.int32)
+                buf("t_cols", adj_t.cols, torch.int32)
+                buf("t_vals", adj_t.vals, torch.float32)
 
     def forward(self, x):
         if self.impl == "ell":
             return spmm_ell(self.ell_cols, self.ell_vals, x)
         if self.impl == "segment":
             return spmm_coo(self.rows, self.cols, self.vals, x, self.n_nodes)
-        return spmm_csr(self.row_ptr, self.cols, self.vals, x)
+        a = (self.row_ptr, self.cols, self.vals)
+        a_t = (a if self.adj.symmetric
+               else (self.t_row_ptr, self.t_cols, self.t_vals))
+        return SpmmCSR.apply(x, *a, *a_t)
 
 
 def propagate_mean(propagator, x0, n_layers):

@@ -95,6 +95,31 @@ def test_eval_sets_match_jax(both, split):
         assert getattr(got, a).dtype == getattr(want, a).dtype, a
 
 
+@pytest.mark.parametrize("attr", ["train_u", "train_i", "excl_bitmap", "img",
+                                  "txt", "ingre_codes", "ingre_num",
+                                  "health_mh"])
+def test_training_arrays_bitwise_equal(both, attr):
+    """The arrays the train epoch and calculate_loss read, bit for bit and
+    dtype for dtype."""
+    _, jdd, _, dd = both
+    got, want = getattr(dd, attr), getattr(jdd, attr)
+    assert got.dtype == want.dtype and got.shape == want.shape, attr
+    assert np.array_equal(np.ascontiguousarray(got).view(np.uint8),
+                          np.ascontiguousarray(want).view(np.uint8)), attr
+    assert dd.n_train == jdd.n_train
+
+
+def test_food_data_training_attributes_match_jax(both):
+    jds, _, ds, _ = both
+    np.testing.assert_array_equal(ds._train_u, jds._train_u)
+    np.testing.assert_array_equal(ds._train_i, jds._train_i)
+    assert ds.validTestRatings == jds.validTestRatings
+    for attr in ("embImage", "embText"):
+        got, want = getattr(ds, attr), getattr(jds, attr)
+        assert isinstance(got, np.memmap), attr  # not read into memory
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
 def test_eval_set_drops_first_repeat_of_positives():
     """A negative list repeating a positive (twice for user 0 and 1) loses
     only the first occurrence, positives lead, width pads to 128."""

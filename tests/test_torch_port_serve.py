@@ -40,20 +40,37 @@ def served(synth_root):
         "neg_sample_num": meta["neg_num"], "use_gpu": False})
     derive_data_paths(cfg, "Synth")
     data = FoodData(cfg)
-    dd = DeviceData.from_food_data(data)
+    dd = data.device_data = DeviceData.from_food_data(data)
     model = get_model("CIKM_Model")(cfg, data)
-    state, unported = params_from_jax(jparams, model)
-    model.load_state_dict(state)
+    model.load_state_dict(params_from_jax(jparams, model))
     return dict(jcfg=jcfg, jdata=jdata, jmodel=jmodel, jparams=jparams,
-                cfg=cfg, dd=dd, model=model, data=data, unported=unported)
+                cfg=cfg, dd=dd, model=model, data=data)
 
 
-def test_unported_leaves_are_reported(served):
-    assert served["unported"] == [
-        "encoder", "mm_target_atten", "ingre_target_atten", "health_mlp",
-        "image_trs", "text_trs", "image_embedding", "text_embedding"]
-    assert sorted(served["model"].state_dict()) == [
-        "ingre_embedding", "item_embedding", "user_embedding"]
+def test_params_from_jax_carries_every_leaf(served):
+    """Every leaf of the JAX pytree, nested ones included, lands in the
+    port's state_dict under its dotted path with the same values, and the
+    state_dict holds the full CIKM_Model key set and nothing else."""
+    from foodrec_tpu_torch.utils.weights import flatten_params
+
+    flat = flatten_params(served["jparams"])
+    state = served["model"].state_dict()
+    assert sorted(state) == sorted(flat)
+    n_layers = served["cfg"]["num_hidden_layers"]
+    encoder_keys = ("ff1_b", "ff1_w", "ff2_b", "ff2_w", "in_proj_b",
+                    "in_proj_w", "ln1_b", "ln1_g", "ln2_b", "ln2_g",
+                    "out_proj_b", "out_proj_w")
+    assert sorted(state) == sorted(
+        ["user_embedding", "item_embedding", "ingre_embedding",
+         "image_embedding", "text_embedding",
+         "image_trs.w", "image_trs.b", "text_trs.w", "text_trs.b",
+         "health_mlp.l1.w", "health_mlp.l1.b", "health_mlp.l2.w",
+         "health_mlp.l2.b", "mm_target_atten.ln_g", "mm_target_atten.ln_b",
+         "ingre_target_atten.ln_g", "ingre_target_atten.ln_b"]
+        + [f"encoder.{i}.{k}" for i in range(n_layers) for k in encoder_keys])
+    for name, arr in flat.items():
+        np.testing.assert_array_equal(state[name].numpy(), np.asarray(arr),
+                                      err_msg=name)
 
 
 def test_params_from_jax_rejects_bad_trees(served):
@@ -62,6 +79,9 @@ def test_params_from_jax_rejects_bad_trees(served):
     params = dict(served["jparams"])
     with pytest.raises(KeyError, match="unknown"):
         params_from_jax({**params, "mystery": np.zeros(3)}, served["model"])
+    with pytest.raises(KeyError, match="missing"):
+        params_from_jax({k: v for k, v in params.items() if k != "health_mlp"},
+                        served["model"])
     params["item_embedding"] = params["item_embedding"][:-1]
     with pytest.raises(ValueError, match="item_embedding"):
         params_from_jax(params, served["model"])

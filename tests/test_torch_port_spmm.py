@@ -100,18 +100,90 @@ def test_unported_options_raise(rng):
         Propagator(adj, compute_dtype="bfloat16", device="cpu")
 
 
-def test_kernel_refuses_inputs_that_need_grad(rng):
+def _row_normalized_adjs(rng):
+    """A graph that is not symmetric: the JAX package's row-normalized
+    adjacency, and the same arrays as the port's NormalizedAdjacency."""
+    from foodrec_tpu.ops.graph import row_normalized_adjacency
+    from foodrec_tpu_torch.ops.graph import NormalizedAdjacency
+
+    rows, cols, n = _graph("hub+empty", rng)
+    jadj = row_normalized_adjacency(rows, cols, n)
+    assert not jadj.symmetric
+    row_ptr = np.concatenate(
+        [[0], np.cumsum(np.bincount(jadj.rows, minlength=n))]).astype(np.int32)
+    adj = NormalizedAdjacency(
+        n_nodes=n, rows=jadj.rows, cols=jadj.cols, vals=jadj.vals,
+        row_ptr=row_ptr, ell_cols=jadj.ell_cols, ell_vals=jadj.ell_vals,
+        max_degree=jadj.max_degree, symmetric=False)
+    return adj, jadj
+
+
+def _cotangent(kind, y):
+    """A loss of y whose gradient reaches the SpMM as the layouts the model
+    gives it: an expanded ones tensor (`sum`), rows of zeros from a slice
+    (`slice`), or a dense tensor (`weighted`)."""
+    if kind == "sum":
+        return y.sum()
+    if kind == "slice":
+        return y[: y.shape[0] // 3].sum()
+    w = torch.linspace(-1.0, 1.0, y.numel(), dtype=y.dtype).reshape(y.shape)
+    return (y * w).sum()
+
+
+@pytest.mark.parametrize("graph", ["symmetric", "row-normalized"])
+@pytest.mark.parametrize("kind", ["sum", "slice", "weighted"])
+def test_port_gradients_match_jax_custom_vjp(rng, graph, kind):
+    """d/dx of the port's `kernel` (SpmmCSR, its plain version on the CPU),
+    `segment` and `ell` against jax.vjp through the JAX package's custom VJP
+    (segment, and Pallas in interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+
+    from foodrec_tpu.ops.spmm import Propagator as JPropagator
     from foodrec_tpu_torch.ops.spmm import Propagator
 
-    adj, _ = _adjs("random", rng)
-    prop = Propagator(adj, impl="kernel", device="cpu")
-    x = torch.randn(adj.n_nodes, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        prop(x)
-    with torch.no_grad():
-        assert prop(x).shape == (adj.n_nodes, 8)
-    # the plain impls keep autograd
-    assert Propagator(adj, impl="segment", device="cpu")(x).requires_grad
+    adj, jadj = (_adjs("hub+empty", rng) if graph == "symmetric"
+                 else _row_normalized_adjs(rng))
+    d = 16
+    x = rng.standard_normal((adj.n_nodes, d)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    # the cotangent of the loss with respect to y, fed to jax.vjp
+    y0 = torch.zeros((adj.n_nodes, d), requires_grad=True)
+    g, = torch.autograd.grad(_cotangent(kind, y0), y0)
+    refs = {}
+    for impl in ("segment", "pallas"):
+        _, vjp = jax.vjp(JPropagator(jadj, impl=impl), jnp.asarray(x))
+        refs[impl] = np.asarray(vjp(jnp.asarray(g.numpy()))[0])
+    for impl in ("kernel", "segment", "ell"):
+        y = Propagator(adj, impl=impl, device="cpu")(xt)
+        got, = torch.autograd.grad(_cotangent(kind, y), xt)
+        for name, ref in refs.items():
+            np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL,
+                                       err_msg=f"port {impl} vs jax {name}")
+
+
+@pytest.mark.parametrize("graph", ["symmetric", "row-normalized"])
+def test_kernel_impl_gradient_equals_segment(rng, graph):
+    """SpmmCSR's backward runs the kernel's plain version on A^T for a CPU
+    tensor: its gradient is segment autograd's, through propagate_mean's
+    three hops, and the adjacency gets none. A non-symmetric graph holds
+    A^T's own CSR tables; a symmetric one reuses A's."""
+    from foodrec_tpu_torch.ops.spmm import Propagator, propagate_mean
+
+    adj, _ = (_adjs("random", rng) if graph == "symmetric"
+              else _row_normalized_adjs(rng))
+    x = rng.standard_normal((adj.n_nodes, 8)).astype(np.float32)
+    grads = {}
+    for impl in ("kernel", "segment"):
+        prop = Propagator(adj, impl=impl, device="cpu")
+        xt = torch.from_numpy(x).requires_grad_(True)
+        y = propagate_mean(prop, xt, 3)
+        grads[impl], = torch.autograd.grad(_cotangent("weighted", y), xt)
+        assert not any(b.requires_grad for b in prop.buffers())
+    np.testing.assert_allclose(grads["kernel"].numpy(),
+                               grads["segment"].numpy(), rtol=RTOL, atol=ATOL)
+    kernel = Propagator(adj, impl="kernel", device="cpu")
+    assert hasattr(kernel, "t_row_ptr") == (graph != "symmetric")
 
 
 def test_kernel_wrapper_raises_without_cuda(rng, monkeypatch, tmp_path):
