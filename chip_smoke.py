@@ -13,13 +13,18 @@ ingredients), with random weights from seed 999:
 
   1. device: card name and power limit, compute capability 9.0, TF32 off
   2. build: every CUDA kernel from the sources in the checkout
-  3. each kernel against its plain PyTorch version on random graphs (hub
-     row, empty rows, odd n, nnz = 0; d in {64, 16}), and run to run bitwise
+  3. each kernel against its plain PyTorch version, in f32 and in bf16 mode,
+     on random graphs (hub row, empty rows, odd n, nnz = 0; d in {16, 64,
+     96}) and on two power-law graphs (Zipf item popularity at Foodcom's and
+     Allrecipes' user-item sizes), forward and backward, run to run bitwise
   4. serving: dataset -> Config/FoodData/DeviceData -> CIKM_Model on cuda;
      kernel against plain on both real adjacencies; eval_cache through the
      kernel and through `segment`; Trainer.evaluate on valid and test;
      full_sort_topk for 64 users against the plain path; launch counts
-  5. times: CUDA events, L2 flushed before each launch, medians
+  5. times: CUDA events, L2 flushed before each launch (clean and dirty),
+     medians, and back to back with the L2 warm; what an empty launch and a
+     copy of the same bytes read under the same clock; the kernel at other
+     plan geometries
   6. training: the SpMM gradient (SpmmCSR: the kernel on A^T) against
      `segment` autograd on random graphs (one symmetric, one row-normalized)
      and both real adjacencies, run to run bitwise; one calculate_loss
@@ -57,6 +62,11 @@ FOODCOM_SCALE = dict(
 SEED = 999
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+# power-law graphs of the JAX package's microbench generator (zipf_adjacency):
+# (users, items, draws) at Foodcom's and at Allrecipes' user-item sizes
+# (foodrec_tpu/ops/spmm.py:59-62)
+POWER_LAW = {"foodcom_zipf": (7596, 29943, 192_000),
+             "allrecipes_zipf": (68768, 45630, 677_000)}
 TOPK_USERS, TOPK_K = 64, 50
 QUEUE_CYCLES = 2_000_000  # ~1 ms of device clock cycles (cuda_time_ms)
 COMPARE_STEPS = 20    # Adam steps through each SpMM path (phase 6)
@@ -92,9 +102,12 @@ def check_close(name, y, y_ref):
     return err
 
 
-def cuda_time_ms(fn, flush, reps=50, warmup=5):
+def cuda_time_ms(fn, flush, reps=50, warmup=5, dirty=False):
     """Median device time of fn() in ms: CUDA events around each call, with
-    the L2 cache flushed (a 256 MB write) before each. A device-side wait of
+    the L2 cache flushed before each by reading a 256 MB buffer, which
+    leaves the L2 holding clean lines. `dirty=True` flushes by writing the
+    buffer instead (the earlier method): the L2 is then full of dirty lines,
+    and fn's misses pay for writing them back. A device-side wait of
     QUEUE_CYCLES after the flush holds the start event back until the host
     has queued fn's launches, so the host's time to issue them (tens of us
     of Python for an autograd Function, more on a busy host) is not
@@ -105,7 +118,10 @@ def cuda_time_ms(fn, flush, reps=50, warmup=5):
         fn()
     pairs = []
     for _ in range(reps):
-        flush.zero_()
+        if dirty:
+            flush.zero_()
+        else:
+            flush.sum()
         torch.cuda._sleep(QUEUE_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -117,6 +133,48 @@ def cuda_time_ms(fn, flush, reps=50, warmup=5):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def warm_time_ms(fn, reps=50, warmup=5):
+    """(device ms, host ms) per call of fn() with no flush: CUDA events
+    around `reps` calls queued back to back, behind a device-side wait long
+    enough for the host to queue them all (QUEUE_CYCLES / 4 a call, some
+    280 us), over reps; and the host's time to queue one call. The inputs
+    stay in the L2 from one call to the next, as a propagation hop finds the
+    x that the step just computed."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda._sleep(QUEUE_CYCLES * reps // 4)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_ms
+
+
+def phase_floor(torch):
+    """What the timing itself costs: an empty launch, and a device copy that
+    moves as many bytes as the SpMM on ui_prop must (22.4 MB), under the
+    clean flush and warm."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    src = torch.randn(2_802_000, device="cuda")  # 11.2 MB in, 11.2 MB out
+    dst = torch.empty_like(src)
+    empty = cuda_time_ms(lambda: torch.cuda._sleep(0), flush)
+    copy = cuda_time_ms(lambda: dst.copy_(src), flush)
+    copy_warm, _ = warm_time_ms(lambda: dst.copy_(src))
+    bound = 2 * src.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"[5 floor] empty launch {empty * 1e3:.2f} us; copy of "
+        f"{2 * src.numel() * 4 / 1e6:.1f} MB {copy * 1e3:.2f} us clean flush, "
+        f"{copy_warm * 1e3:.2f} us warm, bound {bound * 1e3:.2f} us")
+    return dict(empty_launch_ms=empty, copy_ms=copy, copy_warm_ms=copy_warm,
+                copy_bound_ms=bound)
+
+
 def random_csr(rng, n, n_cols, avg_degree=8, empty_frac=0.2, hub_degree=0):
     deg = rng.poisson(avg_degree, n)
     deg[rng.random(n) < empty_frac] = 0
@@ -126,6 +184,21 @@ def random_csr(rng, n, n_cols, avg_degree=8, empty_frac=0.2, hub_degree=0):
     cols = rng.integers(0, n_cols, row_ptr[-1]).astype(np.int32)
     vals = rng.standard_normal(row_ptr[-1]).astype(np.float32)
     return row_ptr, cols, vals
+
+
+def zipf_adjacency(n_users, n_items, n_edges, seed=0):
+    """A power-law bipartite user-item graph, symmetric-normalized: uniform
+    users, Zipf-0.8 item popularity. A copy of the JAX package's SpMM
+    microbench graph (tools/spmm_microbench.py:23-34) on the port's
+    builder."""
+    from foodrec_tpu_torch.ops.graph import sym_normalized_adjacency
+
+    rng = np.random.default_rng(seed)
+    pop = 1.0 / np.arange(1, n_items + 1) ** 0.8
+    pop /= pop.sum()
+    u = rng.integers(0, n_users, n_edges)
+    i = rng.choice(n_items, size=n_edges, p=pop) + n_users
+    return sym_normalized_adjacency(u, i, n_users + n_items)
 
 
 def phase_device(torch):
@@ -155,31 +228,84 @@ def phase_build(kernels):
         f"in {time.perf_counter() - t0:.1f} s")
 
 
+def bf16_round(x):
+    """x rounded to bf16 (to nearest even) and back: the kernel's bf16 mode
+    reads its input so."""
+    return x.bfloat16().float()
+
+
+def kernel_vs_plain(torch, kernels, spmm, name, csr, x):
+    """The kernel on A = csr (row_ptr, cols, vals, plan) against
+    `spmm_csr_plain`, in f32 and in bf16 mode (plain on x rounded to bf16),
+    each run twice and bitwise equal. Returns the two errors."""
+    errs = []
+    for bf16 in (False, True):
+        y1, y2 = (kernels.spmm_csr(*csr, x, round_bf16=bf16) for _ in "12")
+        y_plain = spmm.spmm_csr_plain(*csr[:3], bf16_round(x) if bf16 else x)
+        torch.cuda.synchronize()
+        errs.append(check_close(f"{name} bf16={bf16}", y1, y_plain))
+        if not torch.equal(y1, y2):
+            raise AssertionError(f"{name} bf16={bf16}: two kernel runs differ")
+    return errs
+
+
+def device_csr(torch, spmm, row_ptr, cols, vals):
+    """(row_ptr, cols, vals, plan) on the card from host arrays."""
+    plan = spmm.plan_csr(row_ptr)
+    return tuple(torch.from_numpy(a).cuda() for a in (row_ptr, cols, vals)) + (
+        plan.with_table(torch.from_numpy(plan.table).cuda()),)
+
+
 def phase_random_graphs(torch, kernels, spmm):
     rng = np.random.default_rng(SEED)
-    dev = torch.device("cuda")
     cases = [
         ("hub+empty d64", 10_001, 64, dict(hub_degree=6000)),
         ("hub+empty d16", 10_001, 16, dict(hub_degree=6000)),
         ("odd n d96", 4_097, 96, dict(hub_degree=700)),
         ("nnz=0 d64", 1_000, 64, dict(avg_degree=0)),
+        ("empty stretch d64", 3_001, 64, dict(avg_degree=3, empty_frac=0.9)),
     ]
     for name, n, d, kw in cases:
-        row_ptr, cols, vals = (torch.from_numpy(a).to(dev)
-                               for a in random_csr(rng, n, n, **kw))
+        csr = device_csr(torch, spmm, *random_csr(rng, n, n, **kw))
         x = torch.from_numpy(
-            rng.standard_normal((n, d)).astype(np.float32)).to(dev)
-        y1 = kernels.spmm_csr(row_ptr, cols, vals, x)
-        y2 = kernels.spmm_csr(row_ptr, cols, vals, x)
-        y_plain = spmm.spmm_csr_plain(row_ptr, cols, vals, x)
-        torch.cuda.synchronize()
-        err = check_close(name, y1, y_plain)
-        if not torch.equal(y1, y2):
-            raise AssertionError(f"{name}: two kernel runs differ")
-        deg = (row_ptr[1:] - row_ptr[:-1])
-        log(f"[3 random] {name}: n={n} nnz={cols.numel()} "
+            rng.standard_normal((n, d)).astype(np.float32)).cuda()
+        errs = kernel_vs_plain(torch, kernels, spmm, name, csr, x)
+        deg = (csr[0][1:] - csr[0][:-1])
+        log(f"[3 random] {name}: n={n} nnz={csr[1].numel()} "
             f"max_deg={int(deg.max())} empty_rows={int((deg == 0).sum())} "
-            f"max|d|={err:.3e} bar={bar(y_plain):.3e} bitwise-repeat=ok")
+            f"items={csr[3].n_items} cut_rows={csr[3].n_fix} max|d| f32 "
+            f"{errs[0]:.3e} bf16 {errs[1]:.3e} bitwise-repeat=ok")
+
+
+def phase_power_law(torch, kernels, spmm):
+    """The kernel on the two power-law graphs at d 64: forward against
+    `spmm_csr_plain` and the gradient (SpmmCSR) against `segment` autograd,
+    in f32 and bf16 mode, two runs of each bitwise equal. Returns the graphs
+    for the timed phases."""
+    rng = np.random.default_rng(SEED + 3)
+    dev = torch.device("cuda")
+    graphs = {}
+    for name, (n_users, n_items, n_edges) in POWER_LAW.items():
+        adj = zipf_adjacency(n_users, n_items, n_edges)
+        prop = spmm.Propagator(adj, impl="kernel", device=dev)
+        segment = spmm.Propagator(adj, impl="segment", device=dev)
+        x = torch.from_numpy(rng.standard_normal(
+            (adj.n_nodes, 64)).astype(np.float32)).to(dev)
+        errs = kernel_vs_plain(torch, kernels, spmm, name, prop.csr(), x)
+        deg = np.diff(adj.row_ptr)
+        hub = deg > 256
+        log(f"[3 power-law] {name}: n={adj.n_nodes} nnz={adj.nnz} "
+            f"max_deg={int(deg.max())} p99_deg={np.percentile(deg, 99):.0f} "
+            f"rows>256={int(hub.sum())} ({deg[hub].sum() / adj.nnz:.3f} of "
+            f"nnz) empty_rows={int((deg == 0).sum())} items="
+            f"{prop.plan.n_items} cut_rows={prop.plan.n_fix} kernel vs plain "
+            f"max|d| f32 {errs[0]:.3e} bf16 {errs[1]:.3e} bitwise-repeat=ok")
+        grad_err = spmm_grad_check(torch, spmm, name, adj, 64, rng,
+                                   kernel=prop, segment=segment,
+                                   tag="3 power-law")
+        graphs[name] = dict(prop=prop, segment=segment, x=x, err=max(errs),
+                            grad_err=grad_err, main_path=False)
+    return graphs
 
 
 def swap_propagators(model, impl):
@@ -250,11 +376,14 @@ def phase_serving(torch, kernels, spmm):
                                          device=model.device)(x)))
         if not torch.equal(y, y_again):
             raise AssertionError(f"{name}: two kernel runs differ")
-        graphs[name] = dict(prop=prop, segment=segment, x=x, err=err,
-                            hops=hops)
+        err, err_bf16 = kernel_vs_plain(torch, kernels, spmm, name,
+                                        prop.csr(), x)
+        graphs[name] = dict(prop=prop, segment=segment, x=x,
+                            err=max(err, err_bf16), hops=hops)
         log(f"[4 serve] {name}: n={adj.n_nodes} nnz={adj.nnz} "
-            f"max_deg={adj.max_degree} kernel vs plain max|d|={err:.3e} "
-            f"bar={bar(y_plain):.3e} bitwise-repeat=ok")
+            f"max_deg={adj.max_degree} items={prop.plan.n_items} cut_rows="
+            f"{prop.plan.n_fix} kernel vs plain max|d| f32 {err:.3e} bf16 "
+            f"{err_bf16:.3e} bar={bar(y_plain):.3e} bitwise-repeat=ok")
 
     # eval_cache through the kernel and through segment
     user_k, item_k = model.eval_cache()
@@ -354,31 +483,94 @@ def profile_breakdown(torch, fn, tag, what, top=8):
     return wall_us, busy_us
 
 
-def phase_times(torch, served):
+def bound_of(n, nnz, d):
+    """(bytes, least ms) of y = A @ x: cols, vals and row_ptr read once, x
+    read once, y written once, against 2*nnz*d f32 operations."""
+    n_bytes = nnz * 8 + (n + 1) * 4 + 2 * n * d * 4
+    return n_bytes, max(n_bytes / HBM_BYTES_PER_S,
+                        2 * nnz * d / F32_FLOPS_PER_S) * 1e3
+
+
+def timed_graphs(served, power_law):
+    """The graphs of the timed phases: the main path's two, then the
+    power-law ones (main_path False: out of the kernels' totals)."""
+    return {**{k: dict(g, main_path=True) for k, g in served["graphs"].items()},
+            **power_law}
+
+
+def phase_times(torch, spmm, graphs):
+    """The forward launch by CUDA events, under the clean flush and (kernel
+    and library) the dirty one, beside plain `segment` and torch.sparse.mm;
+    the kernel's bf16 mode."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     per_graph = {}
-    for name, g in served["graphs"].items():
+    for name, g in graphs.items():
         prop, segment, x = g["prop"], g["segment"], g["x"]
         adj = prop.adj
         n, nnz, d = adj.n_nodes, adj.nnz, x.shape[1]
         lib_a = torch.sparse_csr_tensor(prop.row_ptr, prop.cols, prop.vals,
                                         size=(n, n), check_invariants=True)
+        prop_bf16 = spmm.Propagator(adj, impl="kernel",
+                                    compute_dtype="bfloat16", device="cuda")
         with torch.no_grad():
             k_ms = cuda_time_ms(lambda: prop(x), flush)
+            k_dirty = cuda_time_ms(lambda: prop(x), flush, dirty=True)
+            b_ms = cuda_time_ms(lambda: prop_bf16(x), flush)
             p_ms = cuda_time_ms(lambda: segment(x), flush)
             l_ms = cuda_time_ms(lambda: torch.sparse.mm(lib_a, x), flush)
-        n_bytes = nnz * 8 + (n + 1) * 4 + 2 * n * d * 4
-        flops = 2 * nnz * d
-        bound_ms = max(n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+            l_dirty = cuda_time_ms(lambda: torch.sparse.mm(lib_a, x), flush,
+                                   dirty=True)
+            k_warm, k_host = warm_time_ms(lambda: prop(x))
+            l_warm, l_host = warm_time_ms(lambda: torch.sparse.mm(lib_a, x))
+        n_bytes, bound_ms = bound_of(n, nnz, d)
         per_graph[name] = dict(
-            n=n, nnz=nnz, d=d, launches_per_eval_cache=g["hops"], ms=k_ms,
+            n=n, nnz=nnz, d=d, max_degree=adj.max_degree,
+            main_path=g["main_path"], items=prop.plan.n_items,
+            cut_rows=prop.plan.n_fix,
+            launches_per_eval_cache=g.get("hops", 0), ms=k_ms,
             plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms, bytes=n_bytes,
+            bf16_ms=b_ms, ms_dirty_flush=k_dirty, ms_warm=k_warm,
+            host_ms_per_call=k_host, library_ms_dirty_flush=l_dirty,
+            library_ms_warm=l_warm, library_host_ms_per_call=l_host,
             max_abs_err=g["err"])
-        log(f"[5 times] {name}: n={n} nnz={nnz} d={d} kernel {k_ms * 1e3:.2f} us, "
-            f"plain {p_ms * 1e3:.2f} us, torch.sparse.mm {l_ms * 1e3:.2f} us, "
-            f"bound {bound_ms * 1e3:.2f} us ({n_bytes / 1e6:.2f} MB), "
-            f"{g['hops']} launches per eval_cache")
+        log(f"[5 times] {name}: n={n} nnz={nnz} d={d} max_deg="
+            f"{adj.max_degree} kernel {k_ms * 1e3:.2f} us (dirty flush "
+            f"{k_dirty * 1e3:.2f}, warm {k_warm * 1e3:.2f}, bf16 mode "
+            f"{b_ms * 1e3:.2f}; host {k_host * 1e3:.1f} us a call), plain "
+            f"{p_ms * 1e3:.2f} us, torch.sparse.mm {l_ms * 1e3:.2f} us (dirty "
+            f"flush {l_dirty * 1e3:.2f}, warm {l_warm * 1e3:.2f}; host "
+            f"{l_host * 1e3:.1f} us a call), bound {bound_ms * 1e3:.2f} us "
+            f"({n_bytes / 1e6:.2f} MB), {bound_ms / k_ms:.3f} of bound, "
+            f"{g.get('hops', 0)} launches per eval_cache")
     return per_graph
+
+
+# plans timed beside the chosen one: (ITEM_EDGES, ITEM_ROWS,
+# ITEMS_PER_BLOCK, UNROLL)
+SWEEP = [(e, 32, b, u) for e in (32, 48, 64, 80, 128) for b in (8, 16)
+         for u in (4, 8)] + [(64, 16, 8, 8), (64, 64, 8, 8)]
+
+
+def phase_sweep(torch, kernels, spmm, graphs):
+    """The forward kernel at other plan geometries (SWEEP), on every timed
+    graph, clean flush; each result checked against the chosen plan's."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for name, g in graphs.items():
+        prop, x = g["prop"], g["x"]
+        with torch.no_grad():
+            y_ref = prop(x)
+        times = []
+        for geometry in SWEEP:
+            plan = spmm.plan_csr(prop.adj.row_ptr, *geometry)
+            csr = prop.csr()[:3] + (
+                plan.with_table(torch.from_numpy(plan.table).cuda()),)
+            check_close(f"{name} plan {geometry}", kernels.spmm_csr(*csr, x),
+                        y_ref)
+            ms = cuda_time_ms(lambda: kernels.spmm_csr(*csr, x), flush,
+                              reps=20)
+            times.append("/".join(map(str, geometry)) + f" {ms * 1e3:.2f}")
+        log(f"[5 sweep] {name} (item_edges/item_rows/items_per_block/unroll "
+            "us): " + ", ".join(times))
 
 
 def random_adjacency(rng, n, kind, **kw):
@@ -397,12 +589,15 @@ def random_adjacency(rng, n, kind, **kw):
 
 
 def spmm_grad_check(torch, spmm, name, adj, d, rng, kernel=None,
-                    segment=None):
+                    segment=None, tag="6 train"):
     """d/dx of sum(g * A @ x) through SpmmCSR (the kernel on A^T) against
-    `segment` autograd, and two kernel runs bitwise equal."""
+    `segment` autograd; in bf16 mode against `spmm_csr_plain` on A^T and g
+    rounded to bf16; two kernel runs of each bitwise equal."""
     dev = torch.device("cuda")
     kernel = kernel or spmm.Propagator(adj, impl="kernel", device=dev)
     segment = segment or spmm.Propagator(adj, impl="segment", device=dev)
+    kernel_bf16 = spmm.Propagator(adj, impl="kernel", compute_dtype="bfloat16",
+                                  device=dev)
     x, g = (torch.from_numpy(rng.standard_normal((adj.n_nodes, d)).astype(
         np.float32)).to(dev) for _ in range(2))
 
@@ -410,15 +605,23 @@ def spmm_grad_check(torch, spmm, name, adj, d, rng, kernel=None,
         xx = x.clone().requires_grad_(True)
         return torch.autograd.grad(prop(xx), xx, g)[0]
 
-    g1, g2, g_ref = grad(kernel), grad(kernel), grad(segment)
-    torch.cuda.synchronize()
-    err = check_close(f"{name} grad", g1, g_ref)
-    if not torch.equal(g1, g2):
-        raise AssertionError(f"{name}: two kernel backward runs differ")
-    log(f"[6 train] grad {name}: n={adj.n_nodes} nnz={adj.nnz} d={d} "
-        f"symmetric={adj.symmetric} kernel vs segment max|d|={err:.3e} "
-        f"bar={bar(g_ref):.3e} bitwise-repeat=ok")
-    return err
+    errs = []
+    for mode, prop, g_ref in (
+            ("f32", kernel, grad(segment)),
+            ("bf16", kernel_bf16,
+             spmm.spmm_csr_plain(*kernel.csr(transpose=True)[:3],
+                                 bf16_round(g)))):
+        g1, g2 = grad(prop), grad(prop)
+        torch.cuda.synchronize()
+        errs.append(check_close(f"{name} grad {mode}", g1, g_ref))
+        if not torch.equal(g1, g2):
+            raise AssertionError(f"{name} {mode}: two kernel backward runs "
+                                 "differ")
+    log(f"[{tag}] grad {name}: n={adj.n_nodes} nnz={adj.nnz} d={d} "
+        f"symmetric={adj.symmetric} kernel vs plain max|d| f32 "
+        f"{errs[0]:.3e} bf16 {errs[1]:.3e} bar={bar(g_ref):.3e} "
+        f"bitwise-repeat=ok")
+    return max(errs)
 
 
 def draw_batches(torch, dd, n_batches, bs, seed):
@@ -603,50 +806,62 @@ def phase_train(torch, kernels, spmm, served):
                 metrics=metrics)
 
 
-def phase_backward_times(torch, spmm, served):
-    """The backward launch (the kernel on A^T) by CUDA events, beside the
-    plain `segment` backward and torch.sparse.mm on A^T."""
+def phase_backward_times(torch, spmm, graphs):
+    """The backward launch (the kernel on A^T) by CUDA events, under the
+    clean flush and (kernel) the dirty one, beside the plain `segment`
+    backward and torch.sparse.mm on A^T."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     hops_per_step = {"ui_prop": 1, "ri_prop": 2}
     per_graph = {}
-    for name, g in served["graphs"].items():
+    for name, g in graphs.items():
         prop, segment, x = g["prop"], g["segment"], g["x"]
         adj = prop.adj
         n, nnz, d = adj.n_nodes, adj.nnz, x.shape[1]
-        a_t = ((prop.row_ptr, prop.cols, prop.vals) if adj.symmetric
-               else (prop.t_row_ptr, prop.t_cols, prop.t_vals))
+        a_t = prop.csr(transpose=True)
         g_out = torch.randn_like(x)
         xr = x.clone().requires_grad_(True)
         y_seg = segment(xr)
-        lib_at = torch.sparse_csr_tensor(*a_t, size=(n, n),
+        lib_at = torch.sparse_csr_tensor(*a_t[:3], size=(n, n),
                                          check_invariants=True)
-        k_ms = cuda_time_ms(
-            lambda: spmm.spmm_csr(*a_t, g_out, count="spmm_csr_bwd"), flush)
+
+        def kernel(bf16=False):
+            return spmm.spmm_csr(*a_t, g_out, count="spmm_csr_bwd",
+                                 round_bf16=bf16)
+
+        k_ms = cuda_time_ms(kernel, flush)
+        k_dirty = cuda_time_ms(kernel, flush, dirty=True)
+        b_ms = cuda_time_ms(lambda: kernel(bf16=True), flush)
         p_ms = cuda_time_ms(lambda: torch.autograd.grad(
             y_seg, xr, g_out, retain_graph=True), flush)
         l_ms = cuda_time_ms(lambda: torch.sparse.mm(lib_at, g_out), flush)
-        n_bytes = nnz * 8 + (n + 1) * 4 + 2 * n * d * 4
-        bound_ms = max(n_bytes / HBM_BYTES_PER_S,
-                       2 * nnz * d / F32_FLOPS_PER_S) * 1e3
+        n_bytes, bound_ms = bound_of(n, nnz, d)
         per_graph[name] = dict(
-            n=n, nnz=nnz, d=d, launches_per_train_step=hops_per_step[name],
+            n=n, nnz=nnz, d=d, max_degree=adj.max_degree,
+            main_path=g["main_path"],
+            launches_per_train_step=hops_per_step.get(name, 0),
             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms,
-            bytes=n_bytes, symmetric=adj.symmetric)
+            bytes=n_bytes, bf16_ms=b_ms, ms_dirty_flush=k_dirty,
+            symmetric=adj.symmetric)
         log(f"[6 times] backward {name}: n={n} nnz={nnz} d={d} kernel on A^T "
-            f"{k_ms * 1e3:.2f} us, plain segment backward {p_ms * 1e3:.2f} us, "
-            f"torch.sparse.mm(A^T) {l_ms * 1e3:.2f} us, bound "
-            f"{bound_ms * 1e3:.2f} us ({n_bytes / 1e6:.2f} MB), "
-            f"{hops_per_step[name]} launches per train step")
+            f"{k_ms * 1e3:.2f} us (dirty flush {k_dirty * 1e3:.2f}, bf16 mode "
+            f"{b_ms * 1e3:.2f}), plain "
+            f"segment backward {p_ms * 1e3:.2f} us, torch.sparse.mm(A^T) "
+            f"{l_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+            f"({n_bytes / 1e6:.2f} MB), {bound_ms / k_ms:.3f} of bound, "
+            f"{hops_per_step.get(name, 0)} launches per train step")
     return per_graph
 
 
 def kernel_entry(per_graph, per_key, **fields):
-    """A kernels-JSON entry: times summed over the launches of one `per`."""
+    """A kernels-JSON entry: times summed over the launches of one `per` on
+    the main path's graphs; the power-law graphs (main_path False) stand
+    in per_graph only."""
+    main = [g for g in per_graph.values() if g["main_path"]]
 
     def total(key):
-        return sum(g[key] * g[per_key] for g in per_graph.values())
+        return sum(g[key] * g[per_key] for g in main)
 
-    ops = sum(2 * g["nnz"] * g["d"] * g[per_key] for g in per_graph.values())
+    ops = sum(2 * g["nnz"] * g["d"] * g[per_key] for g in main)
     entry = {
         "route": "cuda", "source": "foodrec_tpu_torch/csrc/spmm_csr.cu",
         **fields,
@@ -676,12 +891,16 @@ def main():
     phase_device(torch)
     phase_build(_kernels)
     phase_random_graphs(torch, _kernels, spmm)
+    power_law = phase_power_law(torch, _kernels, spmm)
     if args.kernels_only:
         return 0
     served = phase_serving(torch, _kernels, spmm)
-    per_graph = phase_times(torch, served)
+    graphs = timed_graphs(served, power_law)
+    floor = phase_floor(torch)
+    per_graph = phase_times(torch, spmm, graphs)
+    phase_sweep(torch, _kernels, spmm, graphs)
     trained = phase_train(torch, _kernels, spmm, served)
-    bwd_graph = phase_backward_times(torch, spmm, served)
+    bwd_graph = phase_backward_times(torch, spmm, graphs)
 
     record = {"kernels": [
         kernel_entry(
@@ -692,12 +911,13 @@ def main():
                               "train_epoch": trained["launches"]["spmm_csr"]},
             max_abs_err=max(g["max_abs_err"] for g in per_graph.values()),
             per="one eval_cache: 2 ri_prop hops + 1 ui_prop hop",
-            evaluate_test_s=served["eval_test_s"]),
+            evaluate_test_s=served["eval_test_s"], timing_floor=floor),
         kernel_entry(
             bwd_graph, "launches_per_train_step", name="spmm_csr_bwd",
             replaces="foodrec_tpu/ops/spmm.py:129 (custom VJP :263-273)",
             launches=trained["launches"]["spmm_csr_bwd"],
-            max_abs_err=trained["grad_err"],
+            max_abs_err=max(trained["grad_err"], *(
+                g["grad_err"] for g in power_law.values())),
             per="one train step: 2 ri_prop + 1 ui_prop backward hops",
             epoch_s=trained["epoch_s"], epoch_steps=trained["n_steps"],
             steps_per_s=trained["n_steps"] / trained["epoch_s"],

@@ -30,8 +30,8 @@ BUILD_DIR = os.path.join(
 # kernel name -> (source under csrc/, C entry point, its ctypes argtypes)
 KERNELS = {
     "spmm_csr": ("spmm_csr.cu", "spmm_csr_f32",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                 + [ctypes.c_void_p]),
+                 [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 6
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -115,20 +115,29 @@ def _check(cond, msg):
         raise ValueError(f"spmm_csr: {msg}")
 
 
-def spmm_csr(row_ptr, cols, vals, x, count="spmm_csr"):
+def spmm_csr(row_ptr, cols, vals, plan, x, count="spmm_csr",
+             round_bf16=False):
     """y = A @ x on the card: A in CSR (row_ptr int32 [n+1], cols int32
-    [nnz], vals float32 [nnz]), x float32 [n_cols, d] contiguous with d even.
-    Column ids are trusted to lie in [0, n_cols) (the graph builders make
-    them so). The launch adds one to `launches[count]`: "spmm_csr" for a
-    forward product, "spmm_csr_bwd" for a gradient (A^T @ g)."""
+    [nnz], vals float32 [nnz]) with its work plan (`ops.spmm.plan_csr`, the
+    CsrPlan's table an int32 tensor on x's device), x float32 [n_cols, d]
+    contiguous with d even. `round_bf16` rounds x to bf16 in the kernel; the
+    sums and y stay float32. Column ids are trusted to lie in [0, n_cols)
+    (the graph builders make them so). One product may take two launches (a
+    fix-up kernel adds the slices of cut rows); it adds one to
+    `launches[count]`: "spmm_csr" for a forward product, "spmm_csr_bwd" for
+    a gradient (A^T @ g)."""
     dev = x.device
     _check(dev.type == "cuda", f"x must be on a CUDA device, got {dev}")
-    for t, name in ((row_ptr, "row_ptr"), (cols, "cols"), (vals, "vals")):
-        _check(t.device == dev, f"{name} is on {t.device}, x on {dev}")
+    table = plan.table
+    for t, name in ((row_ptr, "row_ptr"), (cols, "cols"), (vals, "vals"),
+                    (table, "plan table")):
+        _check(isinstance(t, torch.Tensor) and t.device == dev,
+               f"{name} must be a tensor on {dev}")
         _check(t.dim() == 1 and t.is_contiguous(),
                f"{name} must be 1-D contiguous")
-    _check(row_ptr.dtype == torch.int32 and cols.dtype == torch.int32,
-           "row_ptr and cols must be int32")
+    _check(row_ptr.dtype == torch.int32 and cols.dtype == torch.int32
+           and table.dtype == torch.int32,
+           "row_ptr, cols and the plan table must be int32")
     _check(vals.dtype == torch.float32 and x.dtype == torch.float32,
            "vals and x must be float32")
     _check(cols.numel() == vals.numel(), "cols and vals differ in length")
@@ -139,13 +148,30 @@ def spmm_csr(row_ptr, cols, vals, x, count="spmm_csr"):
     _check(d % 2 == 0, f"d must be even, got {d}")
     _check(x.data_ptr() % 8 == 0, "x must be 8-byte aligned")
     _check(count in launches, f"unknown launch count {count!r}")
+    n_items, n_fix = plan.n_items, plan.n_fix
+    _check(table.numel() == 3 * n_items + 2 * n_fix + 3
+           and plan.n_rows == n and plan.nnz == cols.numel(),
+           "the plan does not fit its table or the matrix")
+    threads = 16 * plan.items_per_block  # a half-warp per item
+    _check(threads in range(32, 513, 32),
+           "items_per_block must be even, 2 to 32")
+    _check(plan.unroll in (4, 8), "unroll must be 4 or 8")
     y = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0 or d == 0:
         return y
+    partials = torch.empty((plan.n_partials, d),
+                           dtype=torch.float32, device=dev)
+    # float4 lanes where x allows them (y and the scratch come from the
+    # caching allocator, 512-byte aligned)
+    vec = 4 if d % 4 == 0 and x.data_ptr() % 16 == 0 else 2
     fn = _entry("spmm_csr")
+    ptr = [t.data_ptr() for t in (plan.item_row, plan.item_edge,
+                                  plan.item_slot, plan.fix_row, plan.fix_ptr)]
     with torch.cuda.device(dev):
         err = fn(row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), n, d,
+                 x.data_ptr(), *ptr, y.data_ptr(), partials.data_ptr(),
+                 n_items, n_fix, d, threads, plan.block_edges,
+                 plan.block_rows, vec, plan.unroll, int(round_bf16),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr launch failed with CUDA error {err}")

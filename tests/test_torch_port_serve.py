@@ -107,6 +107,38 @@ def test_eval_cache_matches_jax(served, impl):
     assert not user.requires_grad
 
 
+def test_eval_cache_bf16_matches_jax(served, synth_root):
+    """spmm_dtype bfloat16: the port's kernel impl (its plain version on the
+    CPU) against the JAX package's Pallas path (interpret mode), both with x
+    rounded to bf16 before each of the three hops and f32 sums, on the same
+    parameters."""
+    from foodrec_tpu.models import get_model as jget_model
+    from foodrec_tpu_torch.models import get_model
+
+    jcfg, _ = make_config(synth_root, model="CIKM_Model", overrides={
+        "spmm_dtype": "bfloat16", "spmm_impl": "pallas"})
+    jmodel = jget_model("CIKM_Model")(jcfg, served["jdata"])
+    cfg = served["cfg"]
+    cfg["spmm_impl"], cfg["spmm_dtype"] = "kernel", "bfloat16"
+    try:
+        model = get_model("CIKM_Model")(cfg, served["data"])
+    finally:
+        cfg["spmm_impl"], cfg["spmm_dtype"] = "auto", None
+    assert model.ui_prop.bf16 and model.ri_prop.bf16
+    assert jmodel.ui_prop.impl == jmodel.ri_prop.impl == "pallas"
+    model.load_state_dict(served["model"].state_dict())
+    user, item = model.eval_cache()
+    juser, jitem = jmodel.eval_cache(served["jparams"])
+    np.testing.assert_allclose(user.numpy(), np.asarray(juser),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(item.numpy(), np.asarray(jitem),
+                               rtol=RTOL, atol=ATOL)
+    # the rounding is there: float32 gives other embeddings at this bar
+    user32, _ = served["model"].eval_cache()
+    assert not np.allclose(user.numpy(), user32.numpy(), rtol=RTOL,
+                           atol=ATOL)
+
+
 def _metric_inputs(seed):
     rng = np.random.default_rng(seed)
     b, c, neg_num = 9, 64, 40

@@ -93,11 +93,24 @@ def test_auto_rule(rng):
 
 
 def test_unported_options_raise(rng):
+    """spmm_dtype bfloat16 is ported (every impl builds and computes in it;
+    its parity with the JAX package is in test_torch_port_spmm_plan.py);
+    dtypes the JAX package does not have raise instead of running in f32."""
     from foodrec_tpu_torch.ops.spmm import Propagator
 
     adj, _ = _adjs("random", rng)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        Propagator(adj, compute_dtype="bfloat16", device="cpu")
+    x = torch.from_numpy(rng.standard_normal((adj.n_nodes, 8)).astype(
+        np.float32))
+    for impl in ("ell", "segment", "kernel"):
+        prop = Propagator(adj, impl=impl, compute_dtype="bfloat16",
+                          device="cpu")
+        assert prop.bf16
+        y = prop(x)
+        assert y.dtype == torch.float32 and torch.isfinite(y).all()
+    assert not Propagator(adj, compute_dtype="float32", device="cpu").bf16
+    for dtype in ("float16", "bf16", "float64"):
+        with pytest.raises(ValueError, match="spmm_dtype"):
+            Propagator(adj, compute_dtype=dtype, device="cpu")
 
 
 def _row_normalized_adjs(rng):
@@ -190,7 +203,7 @@ def test_kernel_wrapper_raises_without_cuda(rng, monkeypatch, tmp_path):
     """The kernel module imports without nvcc or CUDA; asking it for the card
     raises instead of falling back to the CPU."""
     from foodrec_tpu_torch.ops import _kernels
-    from foodrec_tpu_torch.ops.spmm import Propagator
+    from foodrec_tpu_torch.ops.spmm import Propagator, plan_csr
 
     adj, _ = _adjs("random", rng)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -198,10 +211,12 @@ def test_kernel_wrapper_raises_without_cuda(rng, monkeypatch, tmp_path):
         Propagator(adj, impl="kernel", device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         _kernels._entry("spmm_csr")
+    plan = plan_csr(adj.row_ptr)
     with pytest.raises(ValueError, match="CUDA device"):
         _kernels.spmm_csr(torch.from_numpy(adj.row_ptr),
                           torch.from_numpy(adj.cols),
                           torch.from_numpy(adj.vals),
+                          plan.with_table(torch.from_numpy(plan.table)),
                           torch.zeros(adj.n_nodes, 8))
     # no toolkit: the build raises with a message instead of a silent fallback
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
