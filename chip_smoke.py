@@ -7,16 +7,20 @@
 Drives the port's serving and training paths for CIKM_Model at full width
 (embedding 64, 2 recipe-ingredient hops + 1 user-item hop, a 2-layer post-LN
 encoder with 2 heads, both target attentions, the health MLP, trainable
-2048-d image and 512-d text tables; batch 512, dropout 0.5, Adam lr 0.002)
-on the Foodcom-scale synthetic catalog (7,596 users x 29,943 items x 4,963
-ingredients), with random weights from seed 999:
+2048-d image and 512-d text tables; batch 512, dropout 0.5, Adam lr 0.002),
+then those of LightGCN, BM3, FGCN and PRICAI_ModelX (CLUSSL) with their
+shipped configs, on the Foodcom-scale synthetic catalog (7,596 users x
+29,943 items x 4,963 ingredients, 2,000 k-means clusters), with random
+weights from seed 999:
 
   1. device: card name and power limit, compute capability 9.0, TF32 off
   2. build: every CUDA kernel from the sources in the checkout
   3. each kernel against its plain PyTorch version, in f32 and in bf16 mode,
      on random graphs (hub row, empty rows, odd n, nnz = 0; d in {16, 64,
-     96}) and on two power-law graphs (Zipf item popularity at Foodcom's and
-     Allrecipes' user-item sizes), forward and backward, run to run bitwise
+     96}), on two power-law graphs (Zipf item popularity at Foodcom's and
+     Allrecipes' user-item sizes) and on a CLUSSL item-cluster graph at the
+     upstream degree (6 clusters an item, ~90 items a cluster row), forward
+     and backward, run to run bitwise
   4. serving: dataset -> Config/FoodData/DeviceData -> CIKM_Model on cuda;
      kernel against plain on both real adjacencies; eval_cache through the
      kernel and through `segment`; Trainer.evaluate on valid and test;
@@ -32,6 +36,16 @@ ingredients), with random weights from seed 999:
      one full epoch (Trainer.train_epoch) with 3 forward + 3 backward
      launches a step; evaluate(valid); the epoch's time, a profile of 20
      steps, peak memory, and the backward launch's time
+  7. zoo: for each of LightGCN, BM3, FGCN (three row-normalized graphs, so
+     its backward runs on A^T's own tables) and PRICAI_ModelX: the graphs
+     `auto` routed, the kernel against plain on each (forward, gradient),
+     eval_cache and one calculate_loss gradient through the kernel and
+     through `segment`, 20 Adam steps through each path, one full epoch
+     with its launches counted, evaluate on valid and test, full_sort_topk
+     against the plain path; the kernel's times on FGCN's and CLUSSL's
+     cluster graphs; and the LightGCN accuracy gate of the JAX package's
+     bench (AUC >= 0.80, NDCG@20 >= 0.38 after 30 epochs on the structured
+     toy synthetic) through the kernel
 
 Any failed check raises and the script exits non-zero. The line before the
 last is the kernels' JSON record; the last line is
@@ -40,6 +54,7 @@ the dataset in build/smoke_data/, both gitignored.
 """
 
 import argparse
+import copy
 import json
 import os
 import statistics
@@ -67,6 +82,10 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 # (foodrec_tpu/ops/spmm.py:59-62)
 POWER_LAW = {"foodcom_zipf": (7596, 29943, 192_000),
              "allrecipes_zipf": (68768, 45630, 677_000)}
+# a CLUSSL item-cluster graph at the upstream degree: (items, clusters,
+# clusters an item); the synthetic catalog draws 2 an item
+# (foodrec_tpu_torch/data/synthetic.py), upstream k-means data has 6
+CLUSTER_GRAPH = (29943, 2000, 6)
 TOPK_USERS, TOPK_K = 64, 50
 QUEUE_CYCLES = 2_000_000  # ~1 ms of device clock cycles (cuda_time_ms)
 COMPARE_STEPS = 20    # Adam steps through each SpMM path (phase 6)
@@ -83,6 +102,37 @@ LOSS_WINDOW = 50      # the loss must fall from the first to the last steps
 # 80GB HBM3 at 700 W), so their bar is 0.2. The gradients themselves are
 # held to `bar` at every step from the same parameters.
 TRAJECTORY_TOL = np.array([1e-4, 0.2, 0.2, 0.2])  # mf, health, kd, reg
+# phase 7: the four models with their shipped configs; CLUSSL's n_cluster
+# (2000 in its yaml) is the synthetic catalog's
+ZOO = ("LightGCN", "BM3", "FGCN", "PRICAI_ModelX")
+ZOO_OVERRIDES = {"PRICAI_ModelX": {"n_cluster": FOODCOM_SCALE["n_clusters"]}}
+# the loss parts of 20 Adam steps through the kernel and through `segment`,
+# relative, per model (zoo_paths). Measured on an H100 80GB HBM3 at 700 W:
+# LightGCN, BM3 and CLUSSL within 2e-7 at every step; FGCN's mf within
+# 2.4e-6 and its reg (~2e-6 in value, from the normalized user outputs and
+# the raw item table) parting to 4.0e-4 by step 19, as two float32 Adam
+# runs part where gradients sit near Adam's eps (see TRAJECTORY_TOL).
+ZOO_TRAJECTORY_TOL = {
+    "LightGCN": np.array([1e-5, 1e-5]),            # mf, reg
+    "BM3": np.array([1e-5, 1e-5, 1e-5]),           # ui + iu, reg, cl
+    "FGCN": np.array([1e-4, 1e-2]),                # mf, reg
+    "PRICAI_ModelX": np.array([1e-5, 1e-5, 1e-5]),  # mf, cl, reg
+}
+# the zoo's graphs with a pattern of their own, timed by phases 5 and 6's
+# functions; the others are ui_prop's and ri_prop's adjacencies again
+TIMED_ZOO_GRAPHS = ("FGCN.ru_prop", "FGCN.ir_prop", "FGCN.ii_prop",
+                    "PRICAI_ModelX.image_prop", "PRICAI_ModelX.text_prop")
+# the LightGCN accuracy gate of the JAX package's bench (bench.py:114-131):
+# parity_check.py's structured toy synthetic (TOY_SCALE, parity_check.py:
+# 32-35), 100 negatives, seed 999, 30 epochs
+GATE_DATASET = "StructSynth"
+GATE_SCALE = dict(n_users=800, n_items=1600, n_ingredients=300,
+                  n_cal_levels=20, n_health_levels=6, n_clusters=50,
+                  img_dim=64, txt_dim=32, neg_num=100, latent_dim=8,
+                  train_per_user=(10, 21), valid_per_user=(2, 4),
+                  test_per_user=(2, 5), seed=17)
+GATE_EPOCHS = 30
+GATE_AUC, GATE_NDCG20 = 0.80, 0.38
 
 
 def log(msg):
@@ -201,6 +251,22 @@ def zipf_adjacency(n_users, n_items, n_edges, seed=0):
     return sym_normalized_adjacency(u, i, n_users + n_items)
 
 
+def cluster_adjacency(n_items, n_clusters, per_item, seed=0):
+    """A CLUSSL item-cluster graph (pricai_modelx.py:63-78):
+    `per_item` uniform cluster draws an item, items then clusters, the
+    symmetric normalization of the model's item-side graphs."""
+    from foodrec_tpu_torch.ops.graph import (
+        bipartite_offset_edges,
+        sym_normalized_adjacency,
+    )
+
+    rng = np.random.default_rng(seed)
+    triples = np.stack([np.repeat(np.arange(n_items), per_item),
+                        rng.integers(0, n_clusters, n_items * per_item)], 1)
+    rows, cols = bipartite_offset_edges(triples, offset_tail=n_items)
+    return sym_normalized_adjacency(rows, cols, n_items + n_clusters)
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -278,15 +344,20 @@ def phase_random_graphs(torch, kernels, spmm):
 
 
 def phase_power_law(torch, kernels, spmm):
-    """The kernel on the two power-law graphs at d 64: forward against
-    `spmm_csr_plain` and the gradient (SpmmCSR) against `segment` autograd,
-    in f32 and bf16 mode, two runs of each bitwise equal. Returns the graphs
-    for the timed phases."""
+    """The kernel on the two power-law graphs and on the CLUSSL cluster
+    graph at the upstream degree, at d 64: forward against `spmm_csr_plain`
+    and the gradient (SpmmCSR) against `segment` autograd, in f32 and bf16
+    mode, two runs of each bitwise equal. Returns the graphs for the timed
+    phases."""
     rng = np.random.default_rng(SEED + 3)
     dev = torch.device("cuda")
     graphs = {}
-    for name, (n_users, n_items, n_edges) in POWER_LAW.items():
-        adj = zipf_adjacency(n_users, n_items, n_edges)
+    shaped = {name: (lambda a=args: zipf_adjacency(*a))
+              for name, args in POWER_LAW.items()}
+    shaped["clussl_upstream_clusters"] = lambda: cluster_adjacency(
+        *CLUSTER_GRAPH)
+    for name, build in shaped.items():
+        adj = build()
         prop = spmm.Propagator(adj, impl="kernel", device=dev)
         segment = spmm.Propagator(adj, impl="segment", device=dev)
         x = torch.from_numpy(rng.standard_normal(
@@ -294,29 +365,43 @@ def phase_power_law(torch, kernels, spmm):
         errs = kernel_vs_plain(torch, kernels, spmm, name, prop.csr(), x)
         deg = np.diff(adj.row_ptr)
         hub = deg > 256
-        log(f"[3 power-law] {name}: n={adj.n_nodes} nnz={adj.nnz} "
+        tag = "3 clusters" if name.startswith("clussl") else "3 power-law"
+        log(f"[{tag}] {name}: n={adj.n_nodes} nnz={adj.nnz} "
             f"max_deg={int(deg.max())} p99_deg={np.percentile(deg, 99):.0f} "
             f"rows>256={int(hub.sum())} ({deg[hub].sum() / adj.nnz:.3f} of "
             f"nnz) empty_rows={int((deg == 0).sum())} items="
             f"{prop.plan.n_items} cut_rows={prop.plan.n_fix} kernel vs plain "
             f"max|d| f32 {errs[0]:.3e} bf16 {errs[1]:.3e} bitwise-repeat=ok")
         grad_err = spmm_grad_check(torch, spmm, name, adj, 64, rng,
-                                   kernel=prop, segment=segment,
-                                   tag="3 power-law")
+                                   kernel=prop, segment=segment, tag=tag)
         graphs[name] = dict(prop=prop, segment=segment, x=x, err=max(errs),
                             grad_err=grad_err, main_path=False)
     return graphs
 
 
-def swap_propagators(model, impl):
-    """Replace both propagators by `impl` ones over the same adjacencies;
-    returns the previous pair."""
+def propagators(model):
+    """{attribute name: Propagator} of a model."""
     from foodrec_tpu_torch.ops.spmm import Propagator
 
-    old = model.ui_prop, model.ri_prop
-    model.ui_prop = Propagator(old[0].adj, impl=impl, device=model.device)
-    model.ri_prop = Propagator(old[1].adj, impl=impl, device=model.device)
+    return {n: m for n, m in model.named_children()
+            if isinstance(m, Propagator)}
+
+
+def swap_propagators(model, impl):
+    """Replace every propagator of the model by an `impl` one over the same
+    adjacency; returns the previous ones, for `restore_propagators`."""
+    from foodrec_tpu_torch.ops.spmm import Propagator
+
+    old = propagators(model)
+    for name, prop in old.items():
+        setattr(model, name, Propagator(prop.adj, impl=impl,
+                                        device=model.device))
     return old
+
+
+def restore_propagators(model, old):
+    for name, prop in old.items():
+        setattr(model, name, prop)
 
 
 def phase_serving(torch, kernels, spmm):
@@ -389,14 +474,14 @@ def phase_serving(torch, kernels, spmm):
     user_k, item_k = model.eval_cache()
     kernel_props = swap_propagators(model, "segment")
     user_p, item_p = model.eval_cache()
-    model.ui_prop, model.ri_prop = kernel_props
+    restore_propagators(model, kernel_props)
     emb_err = max(check_close("eval_cache users", user_k, user_p),
                   check_close("eval_cache items", item_k, item_p))
     log(f"[4 serve] eval_cache kernel vs segment max|d|={emb_err:.3e}")
 
     # the main path, counted: by-user eval on valid and test, top-k requests
     trainer = Trainer(cfg, model)
-    kernels.launches["spmm_csr"] = 0
+    reset_launches(kernels)
     n_caches = 0
     results = {}
     for split, es in (("valid", dd.eval_valid), ("test", dd.eval_test)):
@@ -405,10 +490,7 @@ def phase_serving(torch, kernels, spmm):
         secs = time.perf_counter() - t0
         n_caches += 1
         results[split] = metrics
-        vals = np.array(list(metrics.values()))
-        if not (np.isfinite(vals).all() and (vals >= 0).all()
-                and (vals <= 1).all()):
-            raise AssertionError(f"{split} metrics out of range: {metrics}")
+        check_unit_metrics(metrics, split)
         log(f"[4 serve] evaluate({split}): {json.dumps(metrics)} "
             f"users={es.n_users} {secs:.3f} s {es.n_users / secs:.0f} users/s")
     users = np.arange(TOPK_USERS)
@@ -643,9 +725,9 @@ def draw_batches(torch, dd, n_batches, bs, seed):
     return out
 
 
-def loss_and_grads(torch, model, batch):
+def loss_and_grads(torch, model, batch, generator=None):
     model.zero_grad(set_to_none=True)
-    parts = model.calculate_loss(*batch)
+    parts = model.calculate_loss(*batch, generator=generator)
     sum(parts).backward()
     return (torch.stack(parts).detach(),
             {k: p.grad for k, p in model.named_parameters()})
@@ -751,8 +833,7 @@ def phase_train(torch, kernels, spmm, served):
     model.calculate_loss = recording_loss
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.launches:
-        kernels.launches[k] = 0
+    reset_launches(kernels)
     t0 = time.perf_counter()
     parts = trainer.train_epoch()
     torch.cuda.synchronize()
@@ -788,10 +869,7 @@ def phase_train(torch, kernels, spmm, served):
 
     t0 = time.perf_counter()
     metrics = trainer.evaluate(dd.eval_valid)
-    vals = np.array(list(metrics.values()))
-    if not (np.isfinite(vals).all() and (vals >= 0).all()
-            and (vals <= 1).all()):
-        raise AssertionError(f"valid metrics out of range: {metrics}")
+    check_unit_metrics(metrics, "valid")
     log(f"[6 train] evaluate(valid) after one epoch: {json.dumps(metrics)} "
         f"{time.perf_counter() - t0:.3f} s")
 
@@ -811,7 +889,6 @@ def phase_backward_times(torch, spmm, graphs):
     clean flush and (kernel) the dirty one, beside the plain `segment`
     backward and torch.sparse.mm on A^T."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    hops_per_step = {"ui_prop": 1, "ri_prop": 2}
     per_graph = {}
     for name, g in graphs.items():
         prop, segment, x = g["prop"], g["segment"], g["x"]
@@ -838,7 +915,7 @@ def phase_backward_times(torch, spmm, graphs):
         per_graph[name] = dict(
             n=n, nnz=nnz, d=d, max_degree=adj.max_degree,
             main_path=g["main_path"],
-            launches_per_train_step=hops_per_step.get(name, 0),
+            launches_per_train_step=g.get("hops", 0),
             ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms,
             bytes=n_bytes, bf16_ms=b_ms, ms_dirty_flush=k_dirty,
             symmetric=adj.symmetric)
@@ -848,8 +925,327 @@ def phase_backward_times(torch, spmm, graphs):
             f"segment backward {p_ms * 1e3:.2f} us, torch.sparse.mm(A^T) "
             f"{l_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
             f"({n_bytes / 1e6:.2f} MB), {bound_ms / k_ms:.3f} of bound, "
-            f"{hops_per_step.get(name, 0)} launches per train step")
+            f"{g.get('hops', 0)} launches per train step")
     return per_graph
+
+
+def check_unit_metrics(metrics, what):
+    vals = np.array(list(metrics.values()))
+    if not (np.isfinite(vals).all() and (vals >= 0).all()
+            and (vals <= 1).all()):
+        raise AssertionError(f"{what} metrics out of range: {metrics}")
+
+
+def reset_launches(kernels):
+    for k in kernels.launches:
+        kernels.launches[k] = 0
+
+
+def zoo_hops(model):
+    """{propagator: hops per forward} of a phase 7 model."""
+    name = type(model).__name__
+    if name in ("LightGCN", "BM3"):
+        return {"prop": model.n_layers}
+    if name == "FGCN":
+        agg = len(model.layers) - 1
+        return {"ii_prop": model.n_layers, "ir_prop": agg, "ru_prop": agg}
+    return {"ingre_prop": model.n_ri_layers, "image_prop": model.n_ri_layers,
+            "text_prop": model.n_ri_layers, "ui_prop": model.n_ui_layers}
+
+
+def zoo_graphs(torch, kernels, spmm, model, tag, rng):
+    """Log every propagator of the model and the impl `auto` gave it; hold
+    the kernel against plain on each kernel-routed one (forward, f32 and
+    bf16, and the gradient through SpmmCSR, A^T's own tables where A is not
+    symmetric), bitwise repeat. Returns (graphs for the timed phases,
+    kernel hops a forward)."""
+    name = type(model).__name__
+    hops = zoo_hops(model)
+    props = propagators(model)
+    if set(hops) != set(props):
+        raise AssertionError(f"{name}: propagators {sorted(props)}")
+    graphs, kernel_hops = {}, 0
+    for pname, prop in props.items():
+        adj = prop.adj
+        plan = "no plan"
+        if prop.impl == "kernel":
+            plan = f"items={prop.plan.n_items} cut_rows={prop.plan.n_fix}"
+            if not adj.symmetric:
+                plan += (f", A^T items={prop.t_plan.n_items} "
+                         f"cut_rows={prop.t_plan.n_fix}")
+        log(f"[{tag}] {pname}: impl={prop.impl} n={adj.n_nodes} "
+            f"nnz={adj.nnz} max_deg={adj.max_degree} "
+            f"symmetric={adj.symmetric} {plan}, {hops[pname]} hops")
+        if prop.impl != "kernel":
+            continue
+        kernel_hops += hops[pname]
+        key = f"{name}.{pname}"
+        x = torch.from_numpy(rng.standard_normal(
+            (adj.n_nodes, model.embedding_size)).astype(np.float32)).cuda()
+        segment = spmm.Propagator(adj, impl="segment", device=model.device)
+        with torch.no_grad():
+            err = check_close(f"{key} Propagator", prop(x), segment(x))
+        errs = kernel_vs_plain(torch, kernels, spmm, key, prop.csr(), x)
+        grad_err = spmm_grad_check(torch, spmm, key, adj,
+                                   model.embedding_size, rng, kernel=prop,
+                                   segment=segment, tag=tag)
+        log(f"[{tag}] {key}: kernel vs plain max|d| f32 {errs[0]:.3e} bf16 "
+            f"{errs[1]:.3e} (Propagator vs segment {err:.3e}) "
+            f"bitwise-repeat=ok")
+        graphs[key] = dict(prop=prop, segment=segment, x=x, err=max(errs),
+                           grad_err=grad_err, hops=hops[pname],
+                           main_path=False)
+    return graphs, kernel_hops
+
+
+def zoo_paths(torch, model, cfg, batches, tag):
+    """eval_cache and one calculate_loss gradient through the kernel and
+    through `segment` at the same parameters and dropout draws; and the
+    loss parts of COMPARE_STEPS Adam steps through each path on the same
+    batches, each trainer's generator seeded alike. Returns the gradient's
+    max|d|."""
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    name = type(model).__name__
+    cache_k = model.eval_cache()
+    kernel_props = swap_propagators(model, "segment")
+    cache_p = model.eval_cache()
+    restore_propagators(model, kernel_props)
+    emb_err = max(check_close(f"{name} eval_cache {side}", a, b)
+                  for a, b, side in zip(cache_k, cache_p, ("users", "items")))
+
+    def grads(path_model):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        return loss_and_grads(torch, path_model, batches[0], gen)
+
+    parts_k, grads_k = grads(model)
+    kernel_props = swap_propagators(model, "segment")
+    parts_p, grads_p = grads(model)
+    restore_propagators(model, kernel_props)
+    model.zero_grad(set_to_none=True)
+    check_close(f"{name} loss parts", parts_k, parts_p)
+    grad_err = max(check_close(f"{name} grad {k}", g, grads_p[k])
+                   for k, g in grads_k.items())
+    log(f"[{tag}] eval_cache kernel vs segment max|d|={emb_err:.3e}; "
+        f"calculate_loss {parts_k.tolist()}, {len(grads_k)} gradient "
+        f"leaves within the bar, max|d| {grad_err:.3e}")
+
+    mk, ms = copy.deepcopy(model), copy.deepcopy(model)
+    swap_propagators(ms, "segment")
+    tk, ts = Trainer(cfg, mk), Trainer(cfg, ms)
+    traj = []
+    for batch in batches:
+        pk, ps = tk.train_steps([batch]), ts.train_steps([batch])
+        traj.append(((pk - ps).abs() / ps.abs()).cpu().numpy())
+    traj = np.array(traj)
+    worst = traj.max(axis=0)
+    log(f"[{tag}] {len(batches)} Adam steps through each path: worst "
+        f"relative loss-part difference {[float(f'{w:.3e}') for w in worst]}"
+        f", by step {[float(f'{r:.2e}') for r in traj.max(axis=1)]}")
+    if not (worst <= ZOO_TRAJECTORY_TOL[name]).all():
+        raise AssertionError(f"{name}: trajectories differ by {worst}, bars "
+                             f"{ZOO_TRAJECTORY_TOL[name]}")
+    return grad_err
+
+
+def zoo_topk(torch, model, tag):
+    """full_sort_topk for TOPK_USERS users through the kernel against the
+    plain path: equal up to swaps of scores no further apart than twice
+    the largest score difference between the two paths."""
+    from foodrec_tpu_torch.engine.topk_evaluator import full_sort_topk
+
+    users = np.arange(TOPK_USERS)
+    with torch.no_grad():
+        cache = model.eval_cache()
+        top = full_sort_topk(lambda u, i: model.score_items(cache, u, i),
+                             users, model.n_items, TOPK_K, device=model.device)
+        kernel_props = swap_propagators(model, "segment")
+        cache_p = model.eval_cache()
+        restore_propagators(model, kernel_props)
+        top_p = full_sort_topk(lambda u, i: model.score_items(cache_p, u, i),
+                               users, model.n_items, TOPK_K,
+                               device=model.device)
+        u = torch.as_tensor(users).cuda()
+        scores = model.score_items(cache, u, torch.arange(
+            model.n_items, device="cuda")).cpu()
+        scores_p = model.score_items(cache_p, u, torch.arange(
+            model.n_items, device="cuda")).cpu()
+    if top.shape != (TOPK_USERS, TOPK_K):
+        raise AssertionError(f"top-k shape {tuple(top.shape)}")
+    noise = float((scores - scores_p).abs().max())
+    gap = float((scores_p.gather(1, top) - scores_p.gather(1, top_p)).abs()
+                .max())
+    if not gap <= 2 * noise:
+        raise AssertionError(f"top-k differs from plain by score gap {gap} "
+                             f"(path difference {noise})")
+    log(f"[{tag}] full_sort_topk {TOPK_USERS} users k={TOPK_K}: "
+        f"{float((top == top_p).float().mean()):.4f} of slots equal, score "
+        f"gap of swaps {gap:.3e} (paths differ by up to {noise:.3e})")
+
+
+def phase_zoo_model(torch, kernels, spmm, name):
+    """Phase 7 for one model at Foodcom scale with its shipped config."""
+    from foodrec_tpu_torch.config import Config
+    from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
+    from foodrec_tpu_torch.data.device import DeviceData
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.models import get_model
+
+    tag = f"7 {name}"
+    t0 = time.perf_counter()
+    cfg = Config(name, DATASET, {
+        "data_path": DATA_ROOT + "/", "seed": SEED,
+        "neg_sample_num": FOODCOM_SCALE["neg_num"],
+        **ZOO_OVERRIDES.get(name, {})})
+    derive_data_paths(cfg, DATASET)
+    data = FoodData(cfg)
+    dd = data.device_data = DeviceData.from_food_data(data)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = get_model(name)(
+        cfg, data, generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"[{tag}] device={cfg['device']} embedding={cfg['embedding_size']} "
+        f"batch={cfg['train_batch_size']} lr={cfg['learning_rate']} "
+        f"parameters={sum(p.numel() for p in model.parameters())}; load "
+        f"{t_load:.1f} s, model {time.perf_counter() - t0:.1f} s")
+
+    graphs, hops = zoo_graphs(torch, kernels, spmm, model, tag,
+                              np.random.default_rng(SEED + 7))
+    log(f"[{tag}] {hops} kernel hops a forward (auto's choice)")
+    batches = draw_batches(torch, dd, COMPARE_STEPS, cfg["train_batch_size"],
+                           SEED + 1)
+    model_grad_err = zoo_paths(torch, model, cfg, batches, tag)
+    del batches
+    torch.cuda.empty_cache()
+
+    # training: one full epoch from the seed's parameters, counted
+    trainer = Trainer(cfg, model)
+    step_parts = []
+    calculate_loss = model.calculate_loss
+
+    def recording_loss(*args, **kwargs):
+        parts = calculate_loss(*args, **kwargs)
+        step_parts.append(torch.stack(parts).detach())
+        return parts
+
+    model.calculate_loss = recording_loss
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    parts = trainer.train_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    train_launches = dict(kernels.launches)
+    del model.calculate_loss
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_steps = len(step_parts)
+    if n_steps != trainer.n_batches:
+        raise AssertionError(f"{n_steps} steps, expected {trainer.n_batches}")
+    log(f"[{tag}] epoch: steps={n_steps} wall {epoch_s:.3f} s, "
+        f"{n_steps / epoch_s:.1f} steps/s, peak device memory "
+        f"{peak_gb:.2f} GiB, launches {train_launches}")
+    want = {"spmm_csr": hops * n_steps, "spmm_csr_bwd": hops * n_steps}
+    if train_launches != want:
+        raise AssertionError(f"{name}: expected {want} launches, got "
+                             f"{train_launches}")
+    steps = torch.stack(step_parts).cpu().numpy()
+    if not np.isfinite(steps).all():
+        raise AssertionError(f"{name}: a loss part is not finite")
+    first, last = steps[:LOSS_WINDOW].sum(), steps[-LOSS_WINDOW:].sum()
+    log(f"[{tag}] loss parts per step, epoch mean "
+        f"{(parts.cpu().numpy() / n_steps).tolist()}; first {LOSS_WINDOW} "
+        f"steps sum {first:.4f}, last {LOSS_WINDOW} steps sum {last:.4f}")
+    if not last < first:
+        raise AssertionError(f"{name}: the loss did not fall over the epoch")
+    trainer.scheduler.step()
+    batches = draw_batches(torch, dd, PROFILE_STEPS, cfg["train_batch_size"],
+                           SEED + 2)
+    prof = profile_breakdown(torch, lambda: trainer.train_steps(batches), tag,
+                             f"{PROFILE_STEPS} train steps", top=5)
+
+    # serving: by-user eval on valid and test, one top-k block, counted
+    reset_launches(kernels)
+    eval_s, metrics = {}, {}
+    for split, es in (("valid", dd.eval_valid), ("test", dd.eval_test)):
+        t0 = time.perf_counter()
+        metrics[split] = trainer.evaluate(es, is_test=split == "test")
+        eval_s[split] = time.perf_counter() - t0
+        check_unit_metrics(metrics[split], f"{name} {split}")
+        log(f"[{tag}] evaluate({split}): {json.dumps(metrics[split])} "
+            f"users={es.n_users} {eval_s[split]:.3f} s "
+            f"{es.n_users / eval_s[split]:.0f} users/s")
+    zoo_topk(torch, model, tag)  # one eval_cache through the kernel
+    serve_launches = dict(kernels.launches)
+    want = {"spmm_csr": 3 * hops, "spmm_csr_bwd": 0}
+    log(f"[{tag}] serving: {serve_launches['spmm_csr']} spmm_csr launches "
+        f"over 3 eval_cache calls")
+    if serve_launches != want:
+        raise AssertionError(f"{name}: expected {want} serving launches, got "
+                             f"{serve_launches}")
+    return dict(graphs=graphs, hops=hops, serve=serve_launches["spmm_csr"],
+                train=train_launches, epoch_s=epoch_s, n_steps=n_steps,
+                peak_gb=peak_gb, eval_s=eval_s, metrics=metrics,
+                busy_share=None if prof is None else prof[1] / prof[0],
+                grad_err=max([model_grad_err] + [g["grad_err"]
+                                                 for g in graphs.values()]))
+
+
+def phase_zoo(torch, kernels, spmm):
+    """Phase 7 for the four models, one after another, each freed before
+    the next."""
+    zoo = {}
+    for name in ZOO:
+        zoo[name] = phase_zoo_model(torch, kernels, spmm, name)
+        torch.cuda.empty_cache()
+    return zoo
+
+
+def phase_gate(torch):
+    """The LightGCN accuracy gate of the JAX package's bench through the
+    kernel: 30 epochs on the structured toy synthetic, then evaluate(test)."""
+    from foodrec_tpu_torch.config import Config
+    from foodrec_tpu_torch.data import synthetic
+    from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
+    from foodrec_tpu_torch.data.device import DeviceData
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.models import get_model
+
+    base = os.path.join(DATA_ROOT, GATE_DATASET)
+    if not os.path.isfile(os.path.join(base, "processed_dataset",
+                                       "_GEN_COMPLETE")):
+        synthetic.generate(base, **GATE_SCALE)
+    cfg = Config("LightGCN", GATE_DATASET, {
+        "data_path": DATA_ROOT + "/", "seed": SEED, "epochs": GATE_EPOCHS,
+        "neg_sample_num": GATE_SCALE["neg_num"], "spmm_impl": "kernel"})
+    derive_data_paths(cfg, GATE_DATASET)
+    data = FoodData(cfg)
+    dd = data.device_data = DeviceData.from_food_data(data)
+    model = get_model("LightGCN")(
+        cfg, data, generator=torch.Generator().manual_seed(SEED))
+    if model.prop.impl != "kernel":
+        raise AssertionError(f"gate impl {model.prop.impl}")
+    trainer = Trainer(cfg, model)
+    t0 = time.perf_counter()
+    for _ in range(GATE_EPOCHS):
+        parts = trainer.train_epoch()
+        trainer.scheduler.step()
+    if not torch.isfinite(parts).all():
+        raise AssertionError("gate: a loss part is not finite")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    metrics = trainer.evaluate(dd.eval_test, is_test=True)
+    auc, ndcg = metrics["AUC"], metrics["NDCG@20"]
+    log(f"[7 gate] LightGCN {GATE_EPOCHS} epochs on {GATE_DATASET} "
+        f"({dd.n_users} users x {dd.n_items} items, {trainer.n_batches} "
+        f"steps an epoch) through the kernel: AUC={auc:.4f} "
+        f"NDCG@20={ndcg:.4f} (bars {GATE_AUC}, {GATE_NDCG20}); train "
+        f"{train_s:.1f} s")
+    if not (auc >= GATE_AUC and ndcg >= GATE_NDCG20):
+        raise AssertionError(f"accuracy gate failed: AUC {auc:.4f}, "
+                             f"NDCG@20 {ndcg:.4f}")
+    return dict(auc=auc, ndcg20=ndcg, train_s=train_s)
 
 
 def kernel_entry(per_graph, per_key, **fields):
@@ -901,24 +1297,48 @@ def main():
     phase_sweep(torch, _kernels, spmm, graphs)
     trained = phase_train(torch, _kernels, spmm, served)
     bwd_graph = phase_backward_times(torch, spmm, graphs)
+    zoo = phase_zoo(torch, _kernels, spmm)
+    gate = phase_gate(torch)
+    zoo_graphs = {k: g for z in zoo.values() for k, g in z["graphs"].items()
+                  if k in TIMED_ZOO_GRAPHS}
+    per_graph.update(phase_times(torch, spmm, zoo_graphs))
+    bwd_graph.update(phase_backward_times(torch, spmm, zoo_graphs))
 
+    fwd_by_path = {"serve": served["launches"],
+                   "train_epoch": trained["launches"]["spmm_csr"]}
+    bwd_by_path = {"train_epoch": trained["launches"]["spmm_csr_bwd"]}
+    for name, z in zoo.items():
+        fwd_by_path[f"{name} serve"] = z["serve"]
+        fwd_by_path[f"{name} train_epoch"] = z["train"]["spmm_csr"]
+        bwd_by_path[f"{name} train_epoch"] = z["train"]["spmm_csr_bwd"]
+    models = {name: dict(
+        kernel_hops_per_forward=z["hops"], epoch_s=z["epoch_s"],
+        epoch_steps=z["n_steps"], steps_per_s=z["n_steps"] / z["epoch_s"],
+        peak_memory_gib=z["peak_gb"], evaluate_s=z["eval_s"],
+        busy_share_20_steps=z["busy_share"], metrics=z["metrics"])
+        for name, z in zoo.items()}
     record = {"kernels": [
         kernel_entry(
             per_graph, "launches_per_eval_cache", name="spmm_csr",
             replaces="foodrec_tpu/ops/spmm.py:129",
-            launches=served["launches"] + trained["launches"]["spmm_csr"],
-            launches_by_path={"serve": served["launches"],
-                              "train_epoch": trained["launches"]["spmm_csr"]},
-            max_abs_err=max(g["max_abs_err"] for g in per_graph.values()),
-            per="one eval_cache: 2 ri_prop hops + 1 ui_prop hop",
-            evaluate_test_s=served["eval_test_s"], timing_floor=floor),
+            launches=sum(fwd_by_path.values()),
+            launches_by_path=fwd_by_path,
+            max_abs_err=max([g["max_abs_err"] for g in per_graph.values()]
+                            + [g["err"] for z in zoo.values()
+                               for g in z["graphs"].values()]),
+            per="one CIKM_Model eval_cache: 2 ri_prop hops + 1 ui_prop hop",
+            evaluate_test_s=served["eval_test_s"], timing_floor=floor,
+            models=models, lightgcn_gate=gate),
         kernel_entry(
             bwd_graph, "launches_per_train_step", name="spmm_csr_bwd",
             replaces="foodrec_tpu/ops/spmm.py:129 (custom VJP :263-273)",
-            launches=trained["launches"]["spmm_csr_bwd"],
+            launches=sum(bwd_by_path.values()),
+            launches_by_path=bwd_by_path,
             max_abs_err=max(trained["grad_err"], *(
-                g["grad_err"] for g in power_law.values())),
-            per="one train step: 2 ri_prop + 1 ui_prop backward hops",
+                g["grad_err"] for g in power_law.values()), *(
+                z["grad_err"] for z in zoo.values())),
+            per="one CIKM_Model train step: 2 ri_prop + 1 ui_prop backward "
+                "hops",
             epoch_s=trained["epoch_s"], epoch_steps=trained["n_steps"],
             steps_per_s=trained["n_steps"] / trained["epoch_s"],
             busy_share_20_steps=trained["busy_share"],

@@ -57,5 +57,15 @@ def torch_linear(d_in, d_out, generator, init=xavier_normal):
     return {"w": w, "b": b}
 
 
+def default_linear(d_in, d_out, generator):
+    """nn.Linear(d_in, d_out) as torch initializes it: weight and bias both
+    U(-1/sqrt(d_in), 1/sqrt(d_in)) (kaiming_uniform with a = sqrt(5)); the
+    weight is drawn [in, out], as the JAX package draws it."""
+    bound = 1.0 / math.sqrt(d_in)
+    w = torch.empty(d_in, d_out).uniform_(-bound, bound, generator=generator)
+    b = torch.empty(d_out).uniform_(-bound, bound, generator=generator)
+    return {"w": w, "b": b}
+
+
 def linear_apply(p, x):
     return x @ p["w"] + p["b"]

@@ -1,6 +1,6 @@
 # coding: utf-8
 """Host-side dataset layer: the on-disk FoodRec data contract, the part that
-CIKM_Model's training and serving read.
+the ported models (CIKM_Model, LightGCN, BM3, FGCN, PRICAI_ModelX) read.
 
 Counterpart of `foodrec_tpu/data/dataset.py` (reference
 FoodRec/utils/dataset.py:11-370), parsed with numpy alone (no pandas, no
@@ -13,11 +13,19 @@ native extension):
   data_ingre_code_file.npy          [n_items, 20] int, pad id = n_ingredients
   data_id_ingre_num_file            "item \t count" per line
   inter_coo_matrix.pkl              scipy.sparse train COO
-  ri_graph.txt                      recipe-ingredient int pairs (small_ingre)
+  graph_edge/{ur,ii}_graph.txt      user-recipe, ingredient-ingredient int
+                                    pairs (FGCN)
+  ri_graph.txt                      recipe-ingredient int pairs (graph_edge/,
+                                    or the dataset root when small_ingre)
+  cluster/{image,text}_cluster_edge.txt
+                                    (item, k-means cluster) pairs, read as
+                                    floats (PRICAI_ModelX)
   recipe_health_level_multi_hot_dict.pkl
 
-The other graphs, the study splits and the per-user training dicts are not
-ported yet (ROADMAP.md).
+Not ported yet (ROADMAP.md): the recipe-recipe, recipe-calories and
+recipe-health graphs, the cal / health level dicts, the health-stratified
+sampling buckets, the study splits and the per-user training dicts (SCHGN
+and the studies read them).
 """
 
 import os
@@ -34,6 +42,11 @@ def _read_rating_file(path):
     arr = np.loadtxt(path, delimiter="\t", usecols=(0, 1, 2), ndmin=2,
                      dtype=np.float64)
     return arr[:, 0].astype(np.int64), arr[:, 1].astype(np.int64), arr[:, 2]
+
+
+def _read_pairs(path):
+    """Whitespace-separated int pairs, one per line -> int64 [n, 2]."""
+    return np.loadtxt(path, dtype=np.int64, ndmin=2)
 
 
 def _group_by_consecutive_user(users, items):
@@ -64,7 +77,8 @@ def _read_negative_file(path):
 
 
 class FoodData:
-    """The dataset attributes CIKM_Model reads (reference: dataset.py:11-370)."""
+    """The dataset attributes the ported models read (reference:
+    dataset.py:11-370)."""
 
     def __init__(self, config):
         self.args_config = config
@@ -128,11 +142,21 @@ class FoodData:
         with open(coo_path, "rb") as f:
             self.train_coo_matrix = pickle.load(f).astype(np.float32)
 
+        # flag-gated graphs (dataset.py:243-300)
         graph_path = config["graph_data_path"]
+        if config["load_UserRecipe_graph"]:
+            self.uRecipe_triples = _read_pairs(graph_path + "ur_graph.txt")
         if config["load_RecipeIngre_graph"]:
             ri_dir = ingre_path if config["small_ingre"] else graph_path
-            self.rIngre_triples = np.loadtxt(ri_dir + "ri_graph.txt",
-                                             dtype=np.int64, ndmin=2)
+            self.rIngre_triples = _read_pairs(ri_dir + "ri_graph.txt")
+        if config["load_IngreIngre_graph"]:
+            self.iIngre_triples = _read_pairs(graph_path + "ii_graph.txt")
+        # floats, as the JAX package reads them; the model casts the ids
+        for modality, flag in (("image", "load_ImageCluster_graph"),
+                               ("text", "load_TextCluster_graph")):
+            if config[flag]:
+                setattr(self, f"{modality}_cluster_triples", np.loadtxt(
+                    f"{interaction_path}cluster/{modality}_cluster_edge.txt"))
         if config["use_health_level_multi_hot"]:
             with open(graph_path + "recipe_health_level_multi_hot_dict.pkl",
                       "rb") as f:

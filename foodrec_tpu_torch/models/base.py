@@ -20,8 +20,24 @@ and evaluation splits into
                                              item list (full-catalog top-k)
 """
 
+import numpy as np
 import torch
 from torch import nn
+
+from foodrec_tpu_torch.ops.spmm import Propagator
+
+
+def as_parameters(tree, device):
+    """A dict (or list) of tensors as nested ParameterDicts (ModuleList), so
+    that a leaf at tree["ir_aggs"][0]["W1"]["w"] is the parameter
+    `ir_aggs.0.W1.w`, the JAX pytree's path."""
+    if isinstance(tree, list):
+        return nn.ModuleList(as_parameters(t, device) for t in tree)
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict(
+            {k: nn.Parameter(v.to(device)) for k, v in tree.items()})
+    return nn.ModuleDict(
+        {k: as_parameters(v, device) for k, v in tree.items()})
 
 
 class GeneralRecommender(nn.Module):
@@ -33,6 +49,20 @@ class GeneralRecommender(nn.Module):
         self.n_users = dataset.n_users
         self.n_items = dataset.n_items
         self.embedding_size = config["embedding_size"]
+        # modality features as host float32 tables
+        # (abstract_recommender.py:84-91); a model that trains them makes
+        # them parameters
+        self.v_feat = self.t_feat = None
+        if config["is_multimodal_model"] and not config["end2end"]:
+            self.v_feat = np.asarray(self.dd.img, dtype=np.float32)
+            self.t_feat = np.asarray(self.dd.txt, dtype=np.float32)
+
+    def propagator(self, adj):
+        """A Propagator over `adj` with the config's spmm_impl and
+        spmm_dtype, on the model's device."""
+        return Propagator(adj, impl=self.config["spmm_impl"] or "auto",
+                          compute_dtype=self.config["spmm_dtype"],
+                          device=self.device)
 
     def forward(self):
         raise NotImplementedError
@@ -42,7 +72,8 @@ class GeneralRecommender(nn.Module):
 
     @torch.no_grad()
     def eval_cache(self):
-        return self.forward()[:2]
+        # detached: a model may return a parameter itself (FGCN's items)
+        return tuple(t.detach() for t in self.forward()[:2])
 
     def score_from_cache(self, cache, users, cand):
         user_emb, item_emb = cache[:2]

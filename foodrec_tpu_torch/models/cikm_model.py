@@ -39,7 +39,7 @@ from foodrec_tpu_torch.common.init import (
     xavier_normal,
     xavier_uniform,
 )
-from foodrec_tpu_torch.common.loss import bpr_loss, emb_loss, safe_l2_norm
+from foodrec_tpu_torch.common.loss import bpr_loss, cosine, emb_loss, normalize
 from foodrec_tpu_torch.common.module import (
     mlp_2layer_apply,
     mlp_2layer_params,
@@ -49,42 +49,19 @@ from foodrec_tpu_torch.common.module import (
     transformer_encoder_params,
 )
 from foodrec_tpu_torch.models import register
-from foodrec_tpu_torch.models.base import GeneralRecommender
+from foodrec_tpu_torch.models.base import GeneralRecommender, as_parameters
 from foodrec_tpu_torch.ops.graph import (
     bipartite_offset_edges,
     sym_normalized_adjacency,
     ui_bipartite_edges,
 )
-from foodrec_tpu_torch.ops.spmm import Propagator, propagate_mean
-
-
-def _normalize(x, dim):
-    """F.normalize: x / max(||x||, 1e-12), with a finite gradient at 0."""
-    return x / safe_l2_norm(x, dim=dim, keepdim=True).clamp_min(1e-12)
-
-
-def _cos(a, b):
-    """Cosine with each norm clamped to 1e-8 on its own (not
-    F.cosine_similarity's clamp of the product)."""
-    na = safe_l2_norm(a).clamp_min(1e-8)
-    nb = safe_l2_norm(b).clamp_min(1e-8)
-    return (a * b).sum(-1) / (na * nb)
+from foodrec_tpu_torch.ops.spmm import propagate_mean
 
 
 def _softplus(x):
     """log(1 + e^x) as jax.nn.softplus computes it; F.softplus returns x
     itself above its threshold of 20."""
     return torch.logaddexp(x, torch.zeros_like(x))
-
-
-def _params(tree, device):
-    """A dict (or list) of tensors as nested ParameterDicts (ModuleList)."""
-    if isinstance(tree, list):
-        return nn.ModuleList(_params(t, device) for t in tree)
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict(
-            {k: nn.Parameter(v.to(device)) for k, v in tree.items()})
-    return nn.ModuleDict({k: _params(v, device) for k, v in tree.items()})
 
 
 @register("CIKM_Model")
@@ -106,21 +83,18 @@ class CIKM_Model(GeneralRecommender):
             raise NotImplementedError(
                 "freeze_modality_tables is not ported (the reference trains "
                 "the modality tables)")
-        impl = config["spmm_impl"] or "auto"
 
         # user-item graph (cikm_model.py:139-180)
         rows, cols = ui_bipartite_edges(dataset.train_coo_matrix, self.n_users)
-        self.ui_prop = Propagator(
-            sym_normalized_adjacency(rows, cols, self.n_users + self.n_items),
-            impl=impl, compute_dtype=config["spmm_dtype"], device=self.device)
+        self.ui_prop = self.propagator(
+            sym_normalized_adjacency(rows, cols, self.n_users + self.n_items))
 
         # recipe-ingredient graph over items+ingredients (cikm_model.py:91-134)
         ri_rows, ri_cols = bipartite_offset_edges(
             dataset.rIngre_triples, offset_head=0, offset_tail=self.n_items)
-        self.ri_prop = Propagator(
+        self.ri_prop = self.propagator(
             sym_normalized_adjacency(ri_rows, ri_cols,
-                                     self.n_items + self.n_ingredients),
-            impl=impl, compute_dtype=config["spmm_dtype"], device=self.device)
+                                     self.n_items + self.n_ingredients))
 
         # item side tables, gathered per batch (cikm_model.py:115-124)
         if dd.health_mh is None:
@@ -146,17 +120,17 @@ class CIKM_Model(GeneralRecommender):
         # pad row (last) trains via encoder/KD, detached on the reg path
         self.ingre_embedding = nn.Parameter(
             xavier_uniform((self.n_ingredients + 1, d), g).to(self.device))
-        self.encoder = _params(transformer_encoder_params(
+        self.encoder = as_parameters(transformer_encoder_params(
             g, d, 4 * d, config["num_hidden_layers"]), self.device)
-        self.mm_target_atten = _params(
+        self.mm_target_atten = as_parameters(
             target_attention_params(d // self.nhead), self.device)
-        self.ingre_target_atten = _params(
+        self.ingre_target_atten = as_parameters(
             target_attention_params(d // self.nhead), self.device)
-        self.health_mlp = _params(mlp_2layer_params(g, d, d, n_health),
-                                  self.device)
-        self.image_trs = _params(
+        self.health_mlp = as_parameters(
+            mlp_2layer_params(g, d, d, n_health), self.device)
+        self.image_trs = as_parameters(
             torch_linear(img.shape[1], d, g, init=xavier_normal), self.device)
-        self.text_trs = _params(
+        self.text_trs = as_parameters(
             torch_linear(txt.shape[1], d, g, init=xavier_normal), self.device)
         self.image_embedding = nn.Parameter(img.to(self.device))
         self.text_embedding = nn.Parameter(txt.to(self.device))
@@ -206,12 +180,12 @@ class CIKM_Model(GeneralRecommender):
             self.ingre_target_atten, encoded, mm_query, self.nhead)
 
         # pads included in the sum, the true count in the divisor
-        item_know = _normalize(item_mm, dim=1).sum(1) / ingre_num[:, None]
+        item_know = normalize(item_mm, dim=1).sum(1) / ingre_num[:, None]
 
         # health BCE in logit space: log(sigmoid(z)) = -softplus(-z), with
         # torch BCELoss's clamp of the log at -100 (cikm_model.py:254-264)
         health_logit = mlp_2layer_apply(
-            self.health_mlp, _normalize(item_health, dim=1).mean(1))
+            self.health_mlp, normalize(item_health, dim=1).mean(1))
         log_p = (-_softplus(-health_logit)).clamp_min(-100.0)
         log_1mp = (-_softplus(health_logit)).clamp_min(-100.0)
         bce = -(health_level * log_p + (1 - health_level) * log_1mp)
@@ -225,7 +199,7 @@ class CIKM_Model(GeneralRecommender):
                            weight=weight)
 
         # KD hinge (cikm_model.py:273-279)
-        cos = _cos(item_know, torch.cat([pos_e, neg_e], dim=0))
+        cos = cosine(item_know, torch.cat([pos_e, neg_e], dim=0))
         kd = 1 - (cos * w2).sum() / w2.sum().clamp_min(1.0)
         kd_loss = (kd - self.kd_threshold).clamp_min(0.0)
 

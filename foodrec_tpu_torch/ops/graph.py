@@ -1,14 +1,17 @@
 # coding: utf-8
 """Host-side graph preprocessing: one-time normalized-adjacency builds.
 
-A copy of the builders of `foodrec_tpu/ops/graph.py` that CIKM_Model uses, so
-rows, cols and vals come out bit-identical (f64 degrees, then f32 values),
-plus the CSR row pointer the CUDA SpMM reads, and `transpose_adjacency` for
-the SpMM backward of a graph that is not symmetric.
+A copy of the builders of `foodrec_tpu/ops/graph.py` that the ported models
+use, so rows, cols and vals come out bit-identical, plus the CSR row pointer
+the CUDA SpMM reads, and `transpose_adjacency` for the SpMM backward of a
+graph that is not symmetric. Both normalizations run over the deduplicated
+symmetrized edge set:
 
-Normalization semantics (reference cikm_model.py:166-172): symmetric,
-d = binary_degree + 1e-7 ; val(r,c) = d[r]^-1/2 * d[c]^-1/2 over the
-deduplicated symmetrized edge set.
+  * symmetric (reference cikm_model.py:166-172 and clones):
+    d = binary_degree + 1e-7 ; val(r,c) = d[r]^-1/2 * d[c]^-1/2, f64 degrees
+    then f32 values
+  * row (FGCN, reference fgcn.py:84-106): val(r,c) = 1 / deg[r], the
+    reciprocal taken in f32; not symmetric
 """
 
 import dataclasses
@@ -103,6 +106,19 @@ def sym_normalized_adjacency(rows, cols, n_nodes):
     vals = d[rows] * d[cols]
     # symmetrized edge set + symmetric values -> A == A^T
     return _build(rows, cols, vals, n_nodes, symmetric=True)
+
+
+def row_normalized_adjacency(rows, cols, n_nodes):
+    """D^-1 A (reference: fgcn.py:84-106). The reciprocal is taken in f32,
+    as the reference takes np.power(rowsum_f32, -1) of a float32 dok matrix:
+    f64-then-cast rounds differently on ~1 ulp of rows. An isolated node's
+    row stays empty (its inf reciprocal is set to 0)."""
+    rows, cols = _dedup_symmetrize(np.asarray(rows), np.asarray(cols), n_nodes)
+    deg = np.bincount(rows, minlength=n_nodes).astype(np.float32)
+    with np.errstate(divide="ignore"):
+        d_inv = np.power(deg, np.float32(-1.0))
+    d_inv[np.isinf(d_inv)] = 0.0
+    return _build(rows, cols, d_inv[rows], n_nodes)
 
 
 def transpose_adjacency(adj):

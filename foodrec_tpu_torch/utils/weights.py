@@ -1,11 +1,12 @@
 # coding: utf-8
 """Carry parameters from the JAX package into the port.
 
-`params_from_jax` takes a CIKM_Model `init_params` pytree of the JAX package
-(numpy arrays, e.g. after `jax.device_get`) and returns the port module's
-state_dict. The port names its parameters like the pytree, so a leaf at
-`params["encoder"][1]["ff1_w"]` is `encoder.1.ff1_w` in the port, with the
-same [in, out] layout.
+`params_from_jax` takes an `init_params` pytree of any model of the JAX
+package that the port has (numpy arrays, e.g. after `jax.device_get`) and
+returns the port module's state_dict. The port names its parameters like
+the pytree, so a leaf at `params["encoder"][1]["ff1_w"]` is
+`encoder.1.ff1_w` in the port and `params["ir_aggs"][0]["W1"]["w"]` is
+`ir_aggs.0.W1.w`, with the same [in, out] layout.
 """
 
 import numpy as np
@@ -32,18 +33,19 @@ def params_from_jax(params, model):
     leaf, a missing leaf or a shape that differs from the model's."""
     flat = flatten_params(params)
     want = model.state_dict()
+    name = type(model).__name__
     unknown = sorted(set(flat) - set(want))
     if unknown:
-        raise KeyError(f"unknown CIKM_Model leaves: {unknown}")
+        raise KeyError(f"unknown {name} leaves: {unknown}")
     missing = sorted(set(want) - set(flat))
     if missing:
-        raise KeyError(f"missing CIKM_Model leaves: {missing}")
+        raise KeyError(f"missing {name} leaves: {missing}")
     state = {}
-    for name, ref in want.items():
-        arr = np.asarray(flat[name])
+    for key, ref in want.items():
+        arr = np.asarray(flat[key])
         if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"{name}: JAX shape {arr.shape} != port shape "
+            raise ValueError(f"{key}: JAX shape {arr.shape} != port shape "
                              f"{tuple(ref.shape)}")
-        state[name] = torch.from_numpy(arr.copy()).to(device=ref.device,
+        state[key] = torch.from_numpy(arr.copy()).to(device=ref.device,
                                                       dtype=ref.dtype)
     return state

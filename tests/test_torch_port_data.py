@@ -171,6 +171,89 @@ def test_adjacency_bitwise_equal(n, nnz, hub):
     np.testing.assert_array_equal(got.row_ptr, csr.indptr)
 
 
+def _toy_graph_edges(synth_root, name):
+    """The (rows, cols, n) FGCN builds its three row-normalized graphs from
+    (fgcn.py:46-56), on the toy dataset."""
+    from foodrec_tpu.data.dataset import FoodData as JFoodData
+
+    jcfg, _ = make_config(synth_root, model="FGCN",
+                          overrides={"use_gpu": False})
+    jds = JFoodData(jcfg)
+    nu, ni, ng = jds.n_users, jds.n_items, jds.num_ingredients
+    if name == "ru":
+        t = jds.uRecipe_triples
+        return t[:, 1] + nu, t[:, 0], nu + ni
+    if name == "ir":
+        t = jds.rIngre_triples
+        return t[:, 1] + ni, t[:, 0], ni + ng
+    t = jds.iIngre_triples
+    return t[:, 1], t[:, 0], ng
+
+
+@pytest.mark.parametrize("graph", ["ru", "ir", "ii", "isolated", "hub"])
+def test_row_normalized_adjacency_bitwise_equal(synth_root, graph):
+    """D^-1 A with the f32 reciprocal, bit for bit, on FGCN's three toy
+    graphs, on a graph whose last two nodes have no edge and on a random one
+    with a hub row; the CSR row pointer, and A^T built for the backward."""
+    from foodrec_tpu.ops.graph import row_normalized_adjacency as jrow
+    from foodrec_tpu.ops.graph import transpose_adjacency as jtranspose
+    from foodrec_tpu_torch.ops.graph import (
+        row_normalized_adjacency,
+        transpose_adjacency,
+    )
+
+    if graph == "isolated":
+        rows, cols = _random_edges(5, 40, 90)
+        n = 42
+    elif graph == "hub":
+        rows, cols = _random_edges(6, 300, 400, hub=200)
+        n = 300
+    else:
+        rows, cols, n = _toy_graph_edges(synth_root, graph)
+    got, want = row_normalized_adjacency(rows, cols, n), jrow(rows, cols, n)
+    assert not got.symmetric and not want.symmetric
+    for g_adj, w_adj in ((got, want),
+                         (transpose_adjacency(got), jtranspose(want))):
+        for a in ("rows", "cols", "vals"):
+            g, w = getattr(g_adj, a), getattr(w_adj, a)
+            assert g.dtype == w.dtype, a
+            assert np.array_equal(g.view(np.uint8), w.view(np.uint8)), a
+        assert (g_adj.max_degree, g_adj.has_ell) == (w_adj.max_degree,
+                                                      w_adj.has_ell)
+        csr = sp.coo_matrix((g_adj.vals, (g_adj.rows, g_adj.cols)),
+                            shape=(n, n)).tocsr()
+        np.testing.assert_array_equal(g_adj.row_ptr, csr.indptr)
+    deg = np.diff(got.row_ptr)
+    if graph == "isolated":
+        assert (deg[-2:] == 0).all()
+    # each nonempty row sums to 1 (float32)
+    sums = np.bincount(got.rows, weights=got.vals, minlength=n)
+    np.testing.assert_allclose(sums[deg > 0], 1.0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("model", ["FGCN", "PRICAI_ModelX"])
+def test_graph_attributes_match_jax(synth_root, model):
+    """The graph tables FGCN and CLUSSL read: user-recipe,
+    ingredient-ingredient and recipe-ingredient int pairs, and the two
+    k-means cluster edge lists, read as floats."""
+    from foodrec_tpu.data.dataset import FoodData as JFoodData
+    from foodrec_tpu_torch.data.dataset import FoodData
+
+    jcfg, _ = make_config(synth_root, model=model,
+                          overrides={"use_gpu": False})
+    jds, ds = JFoodData(jcfg), FoodData(_port_config(synth_root, model))
+    attrs = {"FGCN": ("uRecipe_triples", "rIngre_triples", "iIngre_triples"),
+             "PRICAI_ModelX": ("rIngre_triples", "image_cluster_triples",
+                               "text_cluster_triples")}[model]
+    for attr in attrs:
+        got, want = getattr(ds, attr), getattr(jds, attr)
+        assert got.dtype == want.dtype and got.shape == want.shape, attr
+        np.testing.assert_array_equal(got, want, err_msg=attr)
+    absent = {"FGCN": "image_cluster_triples",
+              "PRICAI_ModelX": "uRecipe_triples"}[model]
+    assert not hasattr(ds, absent) and not hasattr(jds, absent)
+
+
 def test_config_matches_jax_merge(synth_root):
     jcfg, _ = make_config(synth_root, model="CIKM_Model",
                           overrides={"use_gpu": False})
