@@ -8,10 +8,10 @@ Drives the port's serving and training paths for CIKM_Model at full width
 (embedding 64, 2 recipe-ingredient hops + 1 user-item hop, a 2-layer post-LN
 encoder with 2 heads, both target attentions, the health MLP, trainable
 2048-d image and 512-d text tables; batch 512, dropout 0.5, Adam lr 0.002),
-then those of LightGCN, BM3, FGCN and PRICAI_ModelX (CLUSSL) with their
-shipped configs, on the Foodcom-scale synthetic catalog (7,596 users x
-29,943 items x 4,963 ingredients, 2,000 k-means clusters), with random
-weights from seed 999:
+then those of LightGCN, BM3, FGCN, PRICAI_ModelX (CLUSSL) and SCHGN with
+their shipped configs, on the Foodcom-scale synthetic catalog (7,596 users x
+29,943 items x 4,963 ingredients x 60 calorie levels, 2,000 k-means
+clusters), with random weights from seed 999:
 
   1. device: card name and power limit, compute capability 9.0, TF32 off
   2. build: every CUDA kernel from the sources in the checkout
@@ -37,15 +37,17 @@ weights from seed 999:
      launches a step; evaluate(valid); the epoch's time, a profile of 20
      steps, peak memory, and the backward launch's time
   7. zoo: for each of LightGCN, BM3, FGCN (three row-normalized graphs, so
-     its backward runs on A^T's own tables) and PRICAI_ModelX: the graphs
+     its backward runs on A^T's own tables), PRICAI_ModelX and SCHGN (one
+     GCNConv hop over a directed graph, whose A^T has the calorie levels'
+     long rows, so every train step runs the fix-up kernel): the graphs
      `auto` routed, the kernel against plain on each (forward, gradient),
      eval_cache and one calculate_loss gradient through the kernel and
      through `segment`, 20 Adam steps through each path, one full epoch
      with its launches counted, evaluate on valid and test, full_sort_topk
-     against the plain path; the kernel's times on FGCN's and CLUSSL's
-     cluster graphs; and the LightGCN accuracy gate of the JAX package's
-     bench (AUC >= 0.80, NDCG@20 >= 0.38 after 30 epochs on the structured
-     toy synthetic) through the kernel
+     against the plain path, chunk by chunk; the kernel's times on FGCN's,
+     CLUSSL's and SCHGN's graphs; and the LightGCN accuracy gate of the JAX
+     package's bench (AUC >= 0.80, NDCG@20 >= 0.38 after 30 epochs on the
+     structured toy synthetic) through the kernel
 
 Any failed check raises and the script exits non-zero. The line before the
 last is the kernels' JSON record; the last line is
@@ -87,6 +89,7 @@ POWER_LAW = {"foodcom_zipf": (7596, 29943, 192_000),
 # (foodrec_tpu_torch/data/synthetic.py), upstream k-means data has 6
 CLUSTER_GRAPH = (29943, 2000, 6)
 TOPK_USERS, TOPK_K = 64, 50
+TOPK_CHUNK = 8192     # full_sort_topk's item chunk
 QUEUE_CYCLES = 2_000_000  # ~1 ms of device clock cycles (cuda_time_ms)
 COMPARE_STEPS = 20    # Adam steps through each SpMM path (phase 6)
 PROFILE_STEPS = 20
@@ -102,26 +105,30 @@ LOSS_WINDOW = 50      # the loss must fall from the first to the last steps
 # 80GB HBM3 at 700 W), so their bar is 0.2. The gradients themselves are
 # held to `bar` at every step from the same parameters.
 TRAJECTORY_TOL = np.array([1e-4, 0.2, 0.2, 0.2])  # mf, health, kd, reg
-# phase 7: the four models with their shipped configs; CLUSSL's n_cluster
+# phase 7: the five models with their shipped configs; CLUSSL's n_cluster
 # (2000 in its yaml) is the synthetic catalog's
-ZOO = ("LightGCN", "BM3", "FGCN", "PRICAI_ModelX")
+ZOO = ("LightGCN", "BM3", "FGCN", "PRICAI_ModelX", "SCHGN")
 ZOO_OVERRIDES = {"PRICAI_ModelX": {"n_cluster": FOODCOM_SCALE["n_clusters"]}}
 # the loss parts of 20 Adam steps through the kernel and through `segment`,
 # relative, per model (zoo_paths). Measured on an H100 80GB HBM3 at 700 W:
 # LightGCN, BM3 and CLUSSL within 2e-7 at every step; FGCN's mf within
 # 2.4e-6 and its reg (~2e-6 in value, from the normalized user outputs and
 # the raw item table) parting to 4.0e-4 by step 19, as two float32 Adam
-# runs part where gradients sit near Adam's eps (see TRAJECTORY_TOL).
+# runs part where gradients sit near Adam's eps (see TRAJECTORY_TOL);
+# SCHGN, its score dropout, SSL masks and encoder dropout drawn alike on
+# both paths, within 8.7e-8 (bpr), 8.1e-8 (reg) and 0 (ssl).
 ZOO_TRAJECTORY_TOL = {
     "LightGCN": np.array([1e-5, 1e-5]),            # mf, reg
     "BM3": np.array([1e-5, 1e-5, 1e-5]),           # ui + iu, reg, cl
     "FGCN": np.array([1e-4, 1e-2]),                # mf, reg
     "PRICAI_ModelX": np.array([1e-5, 1e-5, 1e-5]),  # mf, cl, reg
+    "SCHGN": np.array([1e-5, 1e-5, 1e-5]),          # bpr, reg, ssl
 }
 # the zoo's graphs with a pattern of their own, timed by phases 5 and 6's
 # functions; the others are ui_prop's and ri_prop's adjacencies again
 TIMED_ZOO_GRAPHS = ("FGCN.ru_prop", "FGCN.ir_prop", "FGCN.ii_prop",
-                    "PRICAI_ModelX.image_prop", "PRICAI_ModelX.text_prop")
+                    "PRICAI_ModelX.image_prop", "PRICAI_ModelX.text_prop",
+                    "SCHGN.gcn_prop")
 # the LightGCN accuracy gate of the JAX package's bench (bench.py:114-131):
 # parity_check.py's structured toy synthetic (TOY_SCALE, parity_check.py:
 # 32-35), 100 negatives, seed 999, 30 epochs
@@ -949,6 +956,8 @@ def zoo_hops(model):
     if name == "FGCN":
         agg = len(model.layers) - 1
         return {"ii_prop": model.n_layers, "ir_prop": agg, "ru_prop": agg}
+    if name == "SCHGN":
+        return {"gcn_prop": 1}
     return {"ingre_prop": model.n_ri_layers, "image_prop": model.n_ri_layers,
             "text_prop": model.n_ri_layers, "ui_prop": model.n_ui_layers}
 
@@ -1011,8 +1020,8 @@ def zoo_paths(torch, model, cfg, batches, tag):
     kernel_props = swap_propagators(model, "segment")
     cache_p = model.eval_cache()
     restore_propagators(model, kernel_props)
-    emb_err = max(check_close(f"{name} eval_cache {side}", a, b)
-                  for a, b, side in zip(cache_k, cache_p, ("users", "items")))
+    emb_err = max(check_close(f"{name} eval_cache table {i}", a, b)
+                  for i, (a, b) in enumerate(zip(cache_k, cache_p)))
 
     def grads(path_model):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -1048,39 +1057,62 @@ def zoo_paths(torch, model, cfg, batches, tag):
     return grad_err
 
 
+def chunk_scores(torch, model, cache, users):
+    """[U, n_items] scores of one full_sort_topk user block, scored in the
+    item chunks full_sort_topk scores it in (SCHGN's faithful interleave
+    makes a score depend on its block); never the whole catalog at once."""
+    from foodrec_tpu_torch.engine.topk_evaluator import item_chunks
+
+    u = torch.as_tensor(users).cuda()
+    return torch.cat([model.score_items(cache, u, items)[:, valid].cpu()
+                      for items, valid in item_chunks(model.n_items,
+                                                      TOPK_CHUNK, "cuda")], 1)
+
+
 def zoo_topk(torch, model, tag):
-    """full_sort_topk for TOPK_USERS users through the kernel against the
-    plain path: equal up to swaps of scores no further apart than twice
-    the largest score difference between the two paths."""
+    """full_sort_topk for TOPK_USERS users (one block) through the kernel,
+    timed with its peak device memory, against the plain path: equal up to
+    swaps of scores no further apart than twice the largest score
+    difference between the two paths, both scored chunk by chunk. Returns
+    (s, peak GiB)."""
     from foodrec_tpu_torch.engine.topk_evaluator import full_sort_topk
 
     users = np.arange(TOPK_USERS)
+
+    def top(cache):
+        return full_sort_topk(lambda u, i: model.score_items(cache, u, i),
+                              users, model.n_items, TOPK_K,
+                              user_batch=TOPK_USERS, item_chunk=TOPK_CHUNK,
+                              device=model.device)
+
     with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         cache = model.eval_cache()
-        top = full_sort_topk(lambda u, i: model.score_items(cache, u, i),
-                             users, model.n_items, TOPK_K, device=model.device)
+        top_k = top(cache)
+        topk_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         kernel_props = swap_propagators(model, "segment")
         cache_p = model.eval_cache()
         restore_propagators(model, kernel_props)
-        top_p = full_sort_topk(lambda u, i: model.score_items(cache_p, u, i),
-                               users, model.n_items, TOPK_K,
-                               device=model.device)
-        u = torch.as_tensor(users).cuda()
-        scores = model.score_items(cache, u, torch.arange(
-            model.n_items, device="cuda")).cpu()
-        scores_p = model.score_items(cache_p, u, torch.arange(
-            model.n_items, device="cuda")).cpu()
-    if top.shape != (TOPK_USERS, TOPK_K):
-        raise AssertionError(f"top-k shape {tuple(top.shape)}")
+        top_p = top(cache_p)
+        scores = chunk_scores(torch, model, cache, users)
+        scores_p = chunk_scores(torch, model, cache_p, users)
+    if top_k.shape != (TOPK_USERS, TOPK_K):
+        raise AssertionError(f"top-k shape {tuple(top_k.shape)}")
     noise = float((scores - scores_p).abs().max())
-    gap = float((scores_p.gather(1, top) - scores_p.gather(1, top_p)).abs()
+    gap = float((scores_p.gather(1, top_k) - scores_p.gather(1, top_p)).abs()
                 .max())
     if not gap <= 2 * noise:
         raise AssertionError(f"top-k differs from plain by score gap {gap} "
                              f"(path difference {noise})")
-    log(f"[{tag}] full_sort_topk {TOPK_USERS} users k={TOPK_K}: "
-        f"{float((top == top_p).float().mean()):.4f} of slots equal, score "
-        f"gap of swaps {gap:.3e} (paths differ by up to {noise:.3e})")
+    same = float((top_k == top_p).float().mean())
+    log(f"[{tag}] full_sort_topk {TOPK_USERS} users k={TOPK_K} (item chunks "
+        f"of {TOPK_CHUNK}): {topk_s:.3f} s with its eval_cache, peak device "
+        f"memory {peak_gb:.2f} GiB; {same:.4f} of slots equal, score gap of "
+        f"swaps {gap:.3e} (paths differ by up to {noise:.3e})")
+    return topk_s, peak_gb
 
 
 def phase_zoo_model(torch, kernels, spmm, name):
@@ -1113,6 +1145,18 @@ def phase_zoo_model(torch, kernels, spmm, name):
     graphs, hops = zoo_graphs(torch, kernels, spmm, model, tag,
                               np.random.default_rng(SEED + 7))
     log(f"[{tag}] {hops} kernel hops a forward (auto's choice)")
+    if name == "SCHGN":
+        # `auto` routes the graph to the kernel, and every calorie level's
+        # row of A^T is cut: the backward of each train step runs the fix-up
+        # kernel
+        if model.gcn_prop.impl != "kernel":
+            raise AssertionError(f"gcn_prop.impl={model.gcn_prop.impl}")
+        cut = model.gcn_prop.t_plan.n_fix
+        log(f"[{tag}] gcn_prop A^T: {cut} cut rows, {model.n_health} "
+            "calorie levels")
+        if cut != model.n_health:
+            raise AssertionError(f"A^T cut {cut} rows, expected "
+                                 f"{model.n_health}")
     batches = draw_batches(torch, dd, COMPARE_STEPS, cfg["train_batch_size"],
                            SEED + 1)
     model_grad_err = zoo_paths(torch, model, cfg, batches, tag)
@@ -1176,7 +1220,7 @@ def phase_zoo_model(torch, kernels, spmm, name):
         log(f"[{tag}] evaluate({split}): {json.dumps(metrics[split])} "
             f"users={es.n_users} {eval_s[split]:.3f} s "
             f"{es.n_users / eval_s[split]:.0f} users/s")
-    zoo_topk(torch, model, tag)  # one eval_cache through the kernel
+    topk_s, topk_gb = zoo_topk(torch, model, tag)  # one eval_cache
     serve_launches = dict(kernels.launches)
     want = {"spmm_csr": 3 * hops, "spmm_csr_bwd": 0}
     log(f"[{tag}] serving: {serve_launches['spmm_csr']} spmm_csr launches "
@@ -1187,13 +1231,14 @@ def phase_zoo_model(torch, kernels, spmm, name):
     return dict(graphs=graphs, hops=hops, serve=serve_launches["spmm_csr"],
                 train=train_launches, epoch_s=epoch_s, n_steps=n_steps,
                 peak_gb=peak_gb, eval_s=eval_s, metrics=metrics,
+                topk_s=topk_s, topk_peak_gb=topk_gb,
                 busy_share=None if prof is None else prof[1] / prof[0],
                 grad_err=max([model_grad_err] + [g["grad_err"]
                                                  for g in graphs.values()]))
 
 
 def phase_zoo(torch, kernels, spmm):
-    """Phase 7 for the four models, one after another, each freed before
+    """Phase 7 for the five models, one after another, each freed before
     the next."""
     zoo = {}
     for name in ZOO:
@@ -1315,6 +1360,7 @@ def main():
         kernel_hops_per_forward=z["hops"], epoch_s=z["epoch_s"],
         epoch_steps=z["n_steps"], steps_per_s=z["n_steps"] / z["epoch_s"],
         peak_memory_gib=z["peak_gb"], evaluate_s=z["eval_s"],
+        topk_block_s=z["topk_s"], topk_peak_memory_gib=z["topk_peak_gb"],
         busy_share_20_steps=z["busy_share"], metrics=z["metrics"])
         for name, z in zoo.items()}
     record = {"kernels": [

@@ -39,6 +39,25 @@ def xavier_normal(shape, generator, gain=1.0):
     return std * torch.randn(shape, dtype=torch.float32, generator=generator)
 
 
+def truncated_normal(shape, generator, mean=0.0, std=1.0):
+    """mean + std * N(0, 1) truncated at +-2 (not rescaled to unit
+    variance), float32 on the CPU: SCHGN's init (schgn.py:18-26)."""
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return mean + std * t
+
+
+def tn_linear(d_in, d_out, generator, w_std, b_std=None, bias=True):
+    """SCHGN's re-initialized Linear (schgn.py:130-138): a truncated-normal
+    weight of std `w_std`, drawn [out, in] and stored [in, out], and a
+    truncated-normal bias of std `b_std` (default `w_std`)."""
+    p = {"w": truncated_normal((d_out, d_in), generator,
+                               std=w_std).T.contiguous()}
+    if bias:
+        p["b"] = truncated_normal((d_out,), generator, std=b_std or w_std)
+    return p
+
+
 def linear_params(d_in, d_out, generator, init=xavier_normal):
     """A {'w': [in, out], 'b': [out]} linear layer with a zero bias (the
     reference's xavier initializers, init.py:7-42). The weight is stored

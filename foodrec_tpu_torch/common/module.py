@@ -1,6 +1,6 @@
 # coding: utf-8
-"""Attention and MLP blocks of CIKM_Model, plain PyTorch (counterpart of
-`foodrec_tpu/common/module.py`).
+"""Attention and MLP blocks of CIKM_Model and SCHGN, plain PyTorch
+(counterpart of `foodrec_tpu/common/module.py`).
 
   * `transformer_encoder_*`: torch nn.TransformerEncoder semantics (post-LN,
     multi-head attention with a key-padding mask), written out in einsums as
@@ -8,6 +8,9 @@
     (cikm_model.py:27-32, 228-238).
   * `target_attention_*`: multi-head attention with a per-head LayerNorm on
     Q and K and the additive -2^32+1 padding mask (cikm_model.py:311-369).
+  * `bert_encoder_*`: the reference's from-scratch post-LN encoder with an
+    additive attention mask (module.py:48-194), SCHGN's masked-ingredient
+    encoder.
   * `mlp_2layer_*`: Linear, ReLU, Linear.
 
 Parameters are dicts of tensors in the JAX package's layout (linear weights
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from foodrec_tpu_torch.common.init import (
     linear_apply,
     linear_params,
+    truncated_normal,
     xavier_uniform,
 )
 
@@ -165,6 +169,68 @@ def target_attention_apply(p, query, kv, num_head, seq_ids=None,
     attn = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
     return out.transpose(1, 2).reshape(b, lq, d)
+
+
+# ---------------------------------------------------------------------------
+# from-scratch post-LN encoder with an additive attention mask
+# (reference: FoodRec/common/module.py:48-194)
+# ---------------------------------------------------------------------------
+
+
+def bert_encoder_params(generator, d_model, inner_size, n_layers):
+    """Per layer: q / k / v / dense projections, a two-layer feed-forward
+    and two LayerNorms. Every Linear re-initialized as the reference does
+    (schgn.py:130-138): truncated-normal std 0.01 weights (drawn [out, in],
+    stored [in, out]) and zero biases; LayerNorms (1, 0)."""
+    def w(d_out, d_in):
+        return truncated_normal((d_out, d_in), generator,
+                                std=0.01).T.contiguous()
+
+    layers = []
+    for _ in range(n_layers):
+        layers.append({
+            "q_w": w(d_model, d_model), "q_b": torch.zeros(d_model),
+            "k_w": w(d_model, d_model), "k_b": torch.zeros(d_model),
+            "v_w": w(d_model, d_model), "v_b": torch.zeros(d_model),
+            "dense_w": w(d_model, d_model), "dense_b": torch.zeros(d_model),
+            "ff1_w": w(inner_size, d_model), "ff1_b": torch.zeros(inner_size),
+            "ff2_w": w(d_model, inner_size), "ff2_b": torch.zeros(d_model),
+            "ln1_g": torch.ones(d_model), "ln1_b": torch.zeros(d_model),
+            "ln2_g": torch.ones(d_model), "ln2_b": torch.zeros(d_model),
+        })
+    return layers
+
+
+def bert_encoder_apply(params, x, attn_mask, nhead, act="gelu",
+                       hidden_dropout=0.0, attn_dropout=0.0, generator=None,
+                       layer_norm_eps=1e-12):
+    """x [B, L, D]; attn_mask additive [B, 1, 1, L] (0 keep, -1e8 drop,
+    module.py:96-101). Post-LN with the residual inside both sublayers;
+    dropout on the attention probabilities and on both sublayer outputs,
+    drawn from `generator`."""
+    act_fn = ACT[act]
+    b, L, d = x.shape
+    dh = d // nhead
+
+    def heads(t):
+        return t.reshape(b, L, nhead, dh).transpose(1, 2)  # [B, H, L, dh]
+
+    for p in params:
+        q = heads(x @ p["q_w"] + p["q_b"])
+        k = heads(x @ p["k_w"] + p["k_b"])
+        v = heads(x @ p["v_w"] + p["v_b"])
+        logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(dh)
+        attn = torch.softmax(logits + attn_mask, dim=-1)
+        attn = dropout(attn, attn_dropout, generator)
+        ctx = torch.einsum("bhqk,bhkd->bhqd", attn, v)
+        h = ctx.transpose(1, 2).reshape(b, L, d) @ p["dense_w"] + p["dense_b"]
+        h = dropout(h, hidden_dropout, generator)
+        x = layer_norm(h + x, p["ln1_g"], p["ln1_b"], eps=layer_norm_eps)
+
+        h = act_fn(x @ p["ff1_w"] + p["ff1_b"]) @ p["ff2_w"] + p["ff2_b"]
+        h = dropout(h, hidden_dropout, generator)
+        x = layer_norm(h + x, p["ln2_g"], p["ln2_b"], eps=layer_norm_eps)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 # coding: utf-8
 """Host-side dataset layer: the on-disk FoodRec data contract, the part that
-the ported models (CIKM_Model, LightGCN, BM3, FGCN, PRICAI_ModelX) read.
+the ported models (CIKM_Model, LightGCN, BM3, FGCN, PRICAI_ModelX, SCHGN)
+read.
 
 Counterpart of `foodrec_tpu/data/dataset.py` (reference
 FoodRec/utils/dataset.py:11-370), parsed with numpy alone (no pandas, no
@@ -17,15 +18,16 @@ native extension):
                                     pairs (FGCN)
   ri_graph.txt                      recipe-ingredient int pairs (graph_edge/,
                                     or the dataset root when small_ingre)
+  graph_edge/rc_graph.txt           recipe-calorie-level int pairs (SCHGN)
   cluster/{image,text}_cluster_edge.txt
                                     (item, k-means cluster) pairs, read as
                                     floats (PRICAI_ModelX)
   recipe_health_level_multi_hot_dict.pkl
+  recipe_cal_level_dict.pkl         item -> calorie level (SCHGN)
 
-Not ported yet (ROADMAP.md): the recipe-recipe, recipe-calories and
-recipe-health graphs, the cal / health level dicts, the health-stratified
-sampling buckets, the study splits and the per-user training dicts (SCHGN
-and the studies read them).
+Not ported yet (ROADMAP.md): the recipe-recipe and recipe-health graphs,
+the scalar health level dict, the health-stratified sampling buckets, the
+study splits and the per-user training dicts (the studies read them).
 """
 
 import os
@@ -151,6 +153,10 @@ class FoodData:
             self.rIngre_triples = _read_pairs(ri_dir + "ri_graph.txt")
         if config["load_IngreIngre_graph"]:
             self.iIngre_triples = _read_pairs(graph_path + "ii_graph.txt")
+        self.num_calories_level = 0
+        if config["load_RecipeCalories_graph"]:
+            self.rCalories_triples = _read_pairs(graph_path + "rc_graph.txt")
+            self.num_calories_level = int(self.rCalories_triples[:, 1].max()) + 1
         # floats, as the JAX package reads them; the model casts the ids
         for modality, flag in (("image", "load_ImageCluster_graph"),
                                ("text", "load_TextCluster_graph")):
@@ -161,6 +167,9 @@ class FoodData:
             with open(graph_path + "recipe_health_level_multi_hot_dict.pkl",
                       "rb") as f:
                 self.health_level_multi_hot = pickle.load(f)
+        if config["use_cal_level"]:
+            with open(graph_path + "recipe_cal_level_dict.pkl", "rb") as f:
+                self.cal_level = pickle.load(f)
 
     @staticmethod
     def _load_ingredient_num(path):

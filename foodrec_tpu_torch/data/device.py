@@ -6,13 +6,13 @@
     for the on-device negative sampler (replaces the reference's rejection
     test, dataloader.py:145-151)
   * the item side tables (image, text, ingredient codes and counts, health
-    multi-hot) that the model gathers per batch
+    multi-hot, calorie level) that the model gathers per batch
   * eval candidate sets as one padded [U, C] block per split (replaces the
     reference's per-user generator EvalByUserDataloader,
     dataloader.py:228-302)
 
 Built with vectorized numpy instead of the JAX package's native extension.
-The health-stratified sampling buckets and the cal/health levels are not
+The health-stratified sampling buckets and the scalar health level are not
 ported yet (ROADMAP.md).
 """
 
@@ -123,6 +123,8 @@ class DeviceData:
     eval_valid: EvalSet
     eval_test: EvalSet
 
+    cal_level: Optional[np.ndarray] = None  # int32 [n_items], or None
+
     @property
     def n_train(self):
         return len(self.train_u)
@@ -150,6 +152,13 @@ class DeviceData:
                                  dtype=np.float32)
             for k, v in mh.items():
                 health_mh[k] = np.asarray(v, dtype=np.float32)
+        # loaded under use_cal_level (dataset.py); unlisted items level 0
+        cal_level = None
+        levels = getattr(dataset, "cal_level", None)
+        if levels is not None:
+            cal_level = np.zeros(dataset.n_items, dtype=np.int32)
+            for k, v in levels.items():
+                cal_level[k] = v
 
         eval_valid = build_eval_set(dataset.valid_users, dataset.validRatings,
                                     dataset.validNegatives)
@@ -165,5 +174,5 @@ class DeviceData:
             ingre_codes=np.asarray(dataset.ingredientCodeDict, dtype=np.int32),
             ingre_num=np.asarray(dataset.ingredientNum, dtype=np.int32),
             health_mh=health_mh,
-            eval_valid=eval_valid, eval_test=eval_test,
+            eval_valid=eval_valid, eval_test=eval_test, cal_level=cal_level,
         )

@@ -93,14 +93,22 @@ def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
     """Run the by-user eval over a padded EvalSet on `device`.
 
     score_fn(users int64 [B], cand int64 [B, C]) -> float32 [B, C], called on
-    consecutive user blocks of at most `batch_size`.
+    consecutive user blocks of exactly `batch_size`: the last block is
+    padded with user 0 and zero candidate rows, as the JAX package pads it
+    (evaluator.py:95-100), and the pad rows are dropped from the metrics. A
+    model whose scores mix the samples of a block (SCHGN's faithful
+    interleave) scores the last block's users as the JAX package does.
 
     Returns (valid_score, metrics_dict) with the reference's metric keys
     (AUC, Recall@10/20, NDCG@10/20); valid_score = NDCG@20
     (trainer.py:272-282).
     """
+    u = eval_set.n_users
+    pad = (-u) % batch_size
+
     def put(a):
-        return torch.as_tensor(a).to(device=device, dtype=torch.int64)
+        a = torch.as_tensor(a).to(device=device, dtype=torch.int64)
+        return torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
 
     users, cand = put(eval_set.users), put(eval_set.cand)
     n_pos, n_cand = put(eval_set.n_pos), put(eval_set.n_cand)
@@ -114,7 +122,8 @@ def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
         for k in keys:
             per_user[k].append(m[k])
 
-    per_user = {k: torch.cat(v).cpu().numpy() for k, v in per_user.items()}
+    per_user = {k: torch.cat(v)[:u].cpu().numpy()
+                for k, v in per_user.items()}
     # numpy float32 means, as the JAX package takes them
     metrics = {
         "AUC": float(per_user["auc"].mean()),

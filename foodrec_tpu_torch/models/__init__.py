@@ -3,8 +3,8 @@
 
 import importlib
 
-# the models the port has; SCHGN is not ported yet (ROADMAP.md)
-PORTED = ("CIKM_Model", "LightGCN", "BM3", "FGCN", "PRICAI_ModelX")
+# the models the port has: all six of the JAX package's
+PORTED = ("CIKM_Model", "LightGCN", "BM3", "FGCN", "PRICAI_ModelX", "SCHGN")
 _REGISTRY = {}
 
 

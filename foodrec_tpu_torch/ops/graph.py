@@ -12,6 +12,12 @@ symmetrized edge set:
     then f32 values
   * row (FGCN, reference fgcn.py:84-106): val(r,c) = 1 / deg[r], the
     reciprocal taken in f32; not symmetric
+
+and one over a directed edge list, without symmetrizing:
+
+  * GCNConv (SCHGN, reference schgn.py:29-41): self loops added, deg = the
+    in-degree + 1, val(s,d) = deg[s]^-1/2 * deg[d]^-1/2 with rows = dst;
+    the values stay f64 (the Propagator rounds them once to f32 on the card)
 """
 
 import dataclasses
@@ -27,12 +33,12 @@ class NormalizedAdjacency:
     n_nodes: int
     rows: np.ndarray     # int32 [nnz], sorted (row-major)
     cols: np.ndarray     # int32 [nnz]
-    vals: np.ndarray     # float32 [nnz]
+    vals: np.ndarray     # float32 [nnz] (float64 from gcn_conv_adjacency)
     row_ptr: np.ndarray  # int32 [n_nodes + 1]: row r is [row_ptr[r], row_ptr[r+1])
     # ELL: one padded neighbour table; pad col = 0 with val = 0. None for
     # graphs with a row above ELL_DEGREE_CAP.
     ell_cols: np.ndarray  # int32 [n_nodes, max_deg] or None
-    ell_vals: np.ndarray  # float32 [n_nodes, max_deg] or None
+    ell_vals: np.ndarray  # vals' dtype [n_nodes, max_deg] or None
     max_degree: int
     symmetric: bool = False
 
@@ -119,6 +125,23 @@ def row_normalized_adjacency(rows, cols, n_nodes):
         d_inv = np.power(deg, np.float32(-1.0))
     d_inv[np.isinf(d_inv)] = 0.0
     return _build(rows, cols, d_inv[rows], n_nodes)
+
+
+def gcn_conv_adjacency(src, dst, n_nodes):
+    """torch_geometric GCNConv's gcn_norm over a directed edge list (SCHGN's
+    heterogeneous graph): A_hat = A + I, deg[i] = in-degree(i) + 1 clamped
+    at 1e-12, val(s, d) = deg[s]^-1/2 * deg[d]^-1/2, y[d] = sum val * x[s].
+    The degree is taken on the target column and indexed at both ends of an
+    edge, as PyG does. Rows are the targets; the values stay float64."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    loop = np.arange(n_nodes, dtype=np.int64)
+    src = np.concatenate([src, loop])
+    dst = np.concatenate([dst, loop])
+    deg = np.bincount(dst, minlength=n_nodes).astype(np.float64)
+    d_inv_sqrt = np.power(np.maximum(deg, 1e-12), -0.5)
+    return _build(dst, src, d_inv_sqrt[src] * d_inv_sqrt[dst], n_nodes,
+                  vals_dtype=None)
 
 
 def transpose_adjacency(adj):

@@ -167,11 +167,11 @@ def spmm_ell(ell_cols, ell_vals, x):
 
 def spmm_csr_plain(row_ptr, cols, vals, x):
     """The CUDA kernel's plain version: the same CSR inputs through
-    `spmm_coo`."""
+    `spmm_coo`, with the values in x's dtype."""
     n = row_ptr.numel() - 1
     rows = torch.repeat_interleave(
         torch.arange(n, device=x.device), (row_ptr[1:] - row_ptr[:-1]).long())
-    return spmm_coo(rows, cols.long(), vals, x, n)
+    return spmm_coo(rows, cols.long(), vals.to(x.dtype), x, n)
 
 
 def spmm_csr(row_ptr, cols, vals, plan, x, count="spmm_csr",
@@ -232,7 +232,12 @@ class Propagator(nn.Module):
     of the state_dict. The kernel impl also holds its work plan (`plan_csr`)
     and A^T's CSR tables and plan for its backward, built once on the host
     unless A is symmetric. `compute_dtype`: None or "float32", or
-    "bfloat16"."""
+    "bfloat16".
+
+    The values keep the adjacency's own dtype on the CPU, so a float64 graph
+    (gcn_conv_adjacency) stays unrounded for a model cast to float64; on the
+    card they are rounded once to float32, the kernel's type, as the JAX
+    package's device arrays are without x64."""
 
     def __init__(self, adj, impl="auto", compute_dtype=None, device="cuda"):
         super().__init__()
@@ -244,6 +249,8 @@ class Propagator(nn.Module):
         self.n_nodes = adj.n_nodes
         self.adj = adj  # host-side; lets a caller rebuild it with another impl
         self.impl = select_impl(adj, impl, device)
+        vals_dtype = (torch.float32 if device.type == "cuda"
+                      else torch.as_tensor(adj.vals).dtype)
 
         def buf(name, arr, dtype):
             self.register_buffer(
@@ -252,22 +259,22 @@ class Propagator(nn.Module):
 
         if self.impl == "ell":
             buf("ell_cols", adj.ell_cols, torch.int64)
-            buf("ell_vals", adj.ell_vals, torch.float32)
+            buf("ell_vals", adj.ell_vals, vals_dtype)
         elif self.impl == "segment":
             buf("rows", adj.rows, torch.int64)
             buf("cols", adj.cols, torch.int64)
-            buf("vals", adj.vals, torch.float32)
+            buf("vals", adj.vals, vals_dtype)
         else:
             buf("row_ptr", adj.row_ptr, torch.int32)
             buf("cols", adj.cols, torch.int32)
-            buf("vals", adj.vals, torch.float32)
+            buf("vals", adj.vals, vals_dtype)
             self.plan = plan_csr(adj.row_ptr)
             buf("plan_table", self.plan.table, torch.int32)
             if not adj.symmetric:
                 adj_t = transpose_adjacency(adj)
                 buf("t_row_ptr", adj_t.row_ptr, torch.int32)
                 buf("t_cols", adj_t.cols, torch.int32)
-                buf("t_vals", adj_t.vals, torch.float32)
+                buf("t_vals", adj_t.vals, vals_dtype)
                 self.t_plan = plan_csr(adj_t.row_ptr)
                 buf("t_plan_table", self.t_plan.table, torch.int32)
 

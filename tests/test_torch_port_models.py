@@ -415,7 +415,7 @@ def test_registry_resolves_the_ported_models():
     for name in PORTED:
         assert get_model(name).__name__ == name
     with pytest.raises(ValueError, match="PRICAI_ModelX"):
-        get_model("SCHGN")
+        get_model("NoSuchModel")
 
 
 # ---------------------------------------------------------------------------

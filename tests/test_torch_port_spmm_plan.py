@@ -270,3 +270,89 @@ def test_plan_buffers_follow_the_propagator(rng):
                                   else prop.plan_table)
             assert (plan.n_rows, plan.nnz) == (row_ptr.numel() - 1,
                                                cols.numel())
+
+
+def levels_edges(rng, n_items=600, n_levels=4, n_users=50):
+    """SCHGN's pattern at the size of a plan test (src, dst, n): items ->
+    users and calorie levels -> items, every item at one of 4 levels, so
+    A^T's level rows hold ~150 edges each."""
+    items = rng.integers(0, n_items, 400)
+    src = np.concatenate([items + n_users,
+                          rng.integers(0, n_levels, n_items)
+                          + n_users + n_items])
+    dst = np.concatenate([rng.integers(0, n_users, 400),
+                          np.arange(n_items) + n_users])
+    return src, dst, n_users + n_items + n_levels
+
+
+def test_plan_cuts_the_calorie_rows_of_schgn_a_t(rng):
+    """SCHGN's graph (gcn_conv_adjacency): A's rows, the targets, are short,
+    and A^T's calorie-level rows exceed ITEM_EDGES, so the backward's plan
+    cuts exactly those rows and the fix-up adds them. The plans executed in
+    plain torch, with the values rounded to float32 as on the card, equal
+    `segment`: forward on A, and the gradient (A^T g) on A^T; the kernel
+    impl's autograd (its plain version on the CPU) equals it too."""
+    from foodrec_tpu_torch.ops.graph import gcn_conv_adjacency
+    from foodrec_tpu_torch.ops.spmm import ITEM_EDGES, Propagator
+
+    src, dst, n = levels_edges(rng)
+    adj = gcn_conv_adjacency(src, dst, n)
+    prop = Propagator(adj, impl="kernel", device="cpu")
+    segment = Propagator(adj, impl="segment", device="cpu")
+    t_deg = np.diff(prop.t_row_ptr.numpy())
+    assert prop.plan.n_fix == 0 and adj.max_degree <= ITEM_EDGES
+    np.testing.assert_array_equal(prop.t_plan.fix_row, np.arange(n - 4, n))
+    assert (t_deg[n - 4:] > ITEM_EDGES).all()
+
+    x = torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((n, 16)).astype(np.float32))
+    xx = x.clone().requires_grad_(True)
+    y_ref = segment(xx)
+    gx_ref, = torch.autograd.grad(y_ref, xx, g)
+    for transpose, inp, want in ((False, x, y_ref.detach()), (True, g, gx_ref)):
+        row_ptr, cols, vals, plan = prop.csr(transpose=transpose)
+        got = planned_spmm(row_ptr, cols, vals.float(), plan, inp)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=f"A^T={transpose}")
+    xx = x.clone().requires_grad_(True)
+    gx, = torch.autograd.grad(prop(xx), xx, g)
+    np.testing.assert_allclose(gx.numpy(), gx_ref.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("impl", ["ell", "segment", "kernel"])
+def test_propagator_keeps_the_values_dtype(rng, impl):
+    """On the CPU the value buffers keep the adjacency's dtype: a float32
+    graph's bitwise as before; a float64 graph (gcn_conv_adjacency) stays
+    float64, so a module cast to float64 multiplies by the unrounded values,
+    and a float32 product rounds them once."""
+    import scipy.sparse as sp
+
+    from foodrec_tpu_torch.ops.graph import gcn_conv_adjacency
+    from foodrec_tpu_torch.ops.spmm import Propagator
+
+    sym, _ = _adjs("random", rng)
+    prop = Propagator(sym, impl=impl, device="cpu")
+    names = ("ell_vals",) if impl == "ell" else ("vals",)
+    for name in names:
+        got = getattr(prop, name).numpy()
+        want = sym.ell_vals if impl == "ell" else sym.vals
+        assert got.dtype == np.float32
+        assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
+
+    adj = gcn_conv_adjacency(*levels_edges(rng))
+    prop = Propagator(adj, impl=impl, device="cpu")
+    vals = (prop.ell_vals,) if impl == "ell" else (prop.vals,) + (
+        (prop.t_vals,) if impl == "kernel" else ())
+    assert all(v.dtype == torch.float64 for v in vals)
+    a = sp.csr_matrix((adj.vals, (adj.rows, adj.cols)),
+                      shape=(adj.n_nodes, adj.n_nodes))
+    x = rng.standard_normal((adj.n_nodes, 8))
+    y64 = prop.to(torch.float64)(torch.from_numpy(x))
+    assert y64.dtype == torch.float64
+    np.testing.assert_allclose(y64.numpy(), a @ x, rtol=1e-12, atol=1e-14)
+    y32 = prop(torch.from_numpy(x.astype(np.float32)))
+    a32 = a.astype(np.float32)
+    assert y32.dtype == torch.float32
+    np.testing.assert_allclose(y32.numpy(), a32 @ x.astype(np.float32),
+                               rtol=RTOL, atol=ATOL)
