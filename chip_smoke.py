@@ -48,6 +48,16 @@ clusters), with random weights from seed 999:
      CLUSSL's and SCHGN's graphs; and the LightGCN accuracy gate of the JAX
      package's bench (AUC >= 0.80, NDCG@20 >= 0.38 after 30 epochs on the
      structured toy synthetic) through the kernel
+  8. the experiment driver, in build/driver/ (log/, ckp/, recommend_topk/):
+     the CLI (`runner.main`, CIKM_Model's shipped grid, 2 epochs) with its
+     launches counted against the hops, its best checkpoint reloaded into a
+     fresh model (equal test metrics); one Mirror Gradient epoch (beta 3,
+     launches counted); the full-sort eval of every user over the catalog
+     (k = 50, with the top-k CSV) and the sampled eval (each test positive
+     among its user's 500 negatives), each against the `segment` path; the
+     cold, sense and health-level studies; a 2-epoch fit stopped after
+     epoch 0 (save_state_every: 1) and resumed, against the run that was
+     not stopped
 
 Any failed check raises and the script exits non-zero. The line before the
 last is the kernels' JSON record; the last line is
@@ -140,6 +150,13 @@ GATE_SCALE = dict(n_users=800, n_items=1600, n_ingredients=300,
                   test_per_user=(2, 5), seed=17)
 GATE_EPOCHS = 30
 GATE_AUC, GATE_NDCG20 = 0.80, 0.38
+# phase 8: the experiment driver's outputs (log/, ckp/, recommend_topk/) go
+# under DRIVER_ROOT, the working directory while it runs
+DRIVER_ROOT = os.path.join(ROOT, "build", "driver")
+DRIVER_EPOCHS = 2
+MG_SETTINGS = {"alpha1": 1.0, "alpha2": 0.1, "beta": 3}
+STUDY_FLAGS = {"cold_study": True, "sense_study": True,
+               "health_level_study": True}
 
 
 def log(msg):
@@ -278,7 +295,8 @@ def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     cap = torch.cuda.get_device_capability()
     log(f"[1 device] {torch.cuda.get_device_name(0)} capability {cap} "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -288,6 +306,7 @@ def phase_device(torch):
     torch.backends.cudnn.allow_tf32 = False
     log(f"[1 device] matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    return card
 
 
 def phase_build(kernels):
@@ -1293,6 +1312,421 @@ def phase_gate(torch):
     return dict(auc=auc, ndcg20=ndcg, train_s=train_s)
 
 
+def driver_cli(torch, kernels):
+    """`python -m foodrec_tpu_torch.runner -m CIKM_Model -d FoodcomSynth
+    --epochs 2`, in process: one combination, its best checkpoint at the JAX
+    package's name, the log with its BEST block, every propagator on the
+    kernel, and 3 forward + 3 backward launches a step plus 3 an eval_cache.
+    Returns the run's trainer, test metrics, launches and times."""
+    from foodrec_tpu_torch import runner
+    from foodrec_tpu_torch.engine import quick_start as qs
+
+    trainers, epoch_s, first_epoch = [], [], []
+    get_trainer = qs.get_trainer
+
+    def recording_get_trainer():
+        cls = get_trainer()
+
+        def make(*args, **kwargs):
+            trainer = cls(*args, **kwargs)
+            train_epoch = trainer.train_epoch
+
+            def timed_epoch():
+                if not first_epoch:
+                    first_epoch.append(time.perf_counter())
+                t0 = time.perf_counter()
+                parts = train_epoch()
+                torch.cuda.synchronize()
+                epoch_s.append(time.perf_counter() - t0)
+                return parts
+
+            trainer.train_epoch = timed_epoch
+            trainers.append(trainer)
+            return trainer
+
+        return make
+
+    qs.get_trainer = recording_get_trainer
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    try:
+        hyper_tuple, valid, test = runner.main([
+            "-m", "CIKM_Model", "-d", DATASET, "--data_path", DATA_ROOT + "/",
+            "--epochs", str(DRIVER_EPOCHS),
+            "--neg_sample_num", str(FOODCOM_SCALE["neg_num"])])
+    finally:
+        qs.get_trainer = get_trainer
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+
+    if len(trainers) != 1 or hyper_tuple != (SEED,):
+        raise AssertionError(f"{len(trainers)} combinations, best {hyper_tuple}")
+    trainer = trainers[0]
+    model = trainer.model
+    impls = {n: p.impl for n, p in propagators(model).items()}
+    if set(impls.values()) != {"kernel"}:
+        raise AssertionError(f"propagators {impls}")
+    ckpts = os.listdir("ckp")
+    want_ckpt = f"CIKM_Model-{DATASET}-['seed']=({SEED},).pkl"
+    if ckpts != [want_ckpt]:
+        raise AssertionError(f"checkpoints {ckpts}, expected [{want_ckpt}]")
+    (log_name,) = os.listdir("log")
+    with open(os.path.join("log", log_name), encoding="utf-8") as f:
+        text = f.read()
+    if "█ BEST █" not in text or "Saving current best" not in text:
+        raise AssertionError(f"{log_name} has no BEST block")
+    check_unit_metrics(test, "driver test")
+    check_unit_metrics(valid, "driver valid")
+
+    n_epochs = len(trainer.train_loss_dict)
+    n_evals = n_epochs // trainer.eval_step + 1  # valid evals + the test
+    hops = model.n_layers + model.ui_layers
+    want = {"spmm_csr": hops * (n_epochs * trainer.n_batches + n_evals),
+            "spmm_csr_bwd": hops * n_epochs * trainer.n_batches}
+    log(f"[8 driver] cli: {n_epochs} epochs x {trainer.n_batches} steps, "
+        f"{n_evals} eval_cache calls; launches {launches} (expected {want}); "
+        f"impls {impls}")
+    if n_epochs != DRIVER_EPOCHS or launches != want:
+        raise AssertionError(f"expected {want} launches over {DRIVER_EPOCHS} "
+                             f"epochs, got {launches} over {n_epochs}")
+    setup_s = first_epoch[0] - t0
+    log(f"[8 driver] cli: wall {cli_s:.3f} s, set-up (config, data, device "
+        f"arrays, model) {setup_s:.3f} s, epochs "
+        f"{[round(e, 3) for e in epoch_s]} s "
+        f"({trainer.n_batches / epoch_s[-1]:.1f} steps/s), best {hyper_tuple}, "
+        f"checkpoint ckp/{want_ckpt}, log log/{log_name}")
+    log(f"[8 driver] cli valid: {json.dumps(valid)}")
+    log(f"[8 driver] cli test: {json.dumps(test)}")
+    return dict(trainer=trainer, test=test, launches=launches, cli_s=cli_s,
+                setup_s=setup_s, epoch_s=epoch_s, ckpt=os.path.join("ckp",
+                                                                     want_ckpt))
+
+
+def driver_checkpoint(torch, cli):
+    """The CLI's best checkpoint into a fresh CIKM_Model: evaluate(test)
+    equals the run's test metrics. Times save and load, and the size."""
+    from foodrec_tpu_torch.engine import checkpoint as ckpt
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.models import get_model
+
+    trainer = cli["trainer"]
+    cfg, data = trainer.config, trainer.model.dataset
+    fresh = get_model("CIKM_Model")(
+        cfg, data, generator=torch.Generator().manual_seed(SEED + 1))
+    t0 = time.perf_counter()
+    state = Trainer.load_checkpoint(cli["ckpt"])
+    fresh.load_state_dict(state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.save_best(fresh.state_dict(), cli["ckpt"] + ".again")
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(cli["ckpt"])
+    metrics = Trainer(cfg, fresh).evaluate(data.device_data.eval_test,
+                                           is_test=True)
+    log(f"[8 driver] checkpoint {size / 2 ** 20:.1f} MiB: save {save_s:.3f} s, "
+        f"load {load_s:.3f} s; reloaded evaluate(test) {json.dumps(metrics)}")
+    if metrics != cli["test"]:
+        raise AssertionError(f"reloaded test metrics {metrics} != the run's "
+                             f"{cli['test']}")
+    del fresh, state
+    return dict(size_mib=size / 2 ** 20, save_s=save_s, load_s=load_s)
+
+
+def driver_mg(torch, kernels, data):
+    """One CIKM_Model epoch under Mirror Gradient (alpha1 1.0, alpha2 0.1,
+    beta 3), counted: 3 launches each way for every pass, n_batches +
+    ceil(n_batches / 3) passes."""
+    from foodrec_tpu_torch.config import Config
+    from foodrec_tpu_torch.data.dataset import derive_data_paths
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.models import get_model
+
+    cfg = Config("CIKM_Model", DATASET, {
+        "data_path": DATA_ROOT + "/", "seed": SEED,
+        "neg_sample_num": FOODCOM_SCALE["neg_num"], **MG_SETTINGS}, mg=True)
+    derive_data_paths(cfg, DATASET)
+    model = get_model("CIKM_Model")(
+        cfg, data, generator=torch.Generator().manual_seed(SEED))
+    trainer = Trainer(cfg, model, mg=True)
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    parts = trainer.train_epoch()
+    torch.cuda.synchronize()
+    mg_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    n_batches = trainer.n_batches
+    passes = n_batches + -(-n_batches // MG_SETTINGS["beta"])
+    hops = model.n_layers + model.ui_layers
+    want = {"spmm_csr": hops * passes, "spmm_csr_bwd": hops * passes}
+    log(f"[8 driver] mg epoch: {n_batches} batches, {trainer.n_updates} "
+        f"updates, wall {mg_s:.3f} s, {n_batches / mg_s:.1f} steps/s, "
+        f"launches {launches} (expected {want}), loss parts per step "
+        f"{(parts.cpu().numpy() / n_batches).tolist()}, lr after the epoch "
+        f"{trainer.lr_schedule(trainer.n_updates):.6g}")
+    if launches != want or trainer.n_updates != passes:
+        raise AssertionError(f"mg: expected {want} launches and {passes} "
+                             f"updates, got {launches}, {trainer.n_updates}")
+    if not torch.isfinite(parts).all():
+        raise AssertionError("mg: a loss part is not finite")
+    return dict(epoch_s=mg_s, steps=n_batches, updates=passes,
+                launches=launches)
+
+
+def driver_full_sort(torch, kernels, trainer):
+    """_valid_full_sort(test): every user over the whole catalog, k = 50,
+    with the top-k CSV; against the same sweep through `segment`: the same
+    ids in every slot, or swaps of scores closer than twice the two paths'
+    score difference, and the same metrics."""
+    from foodrec_tpu_torch.engine import topk_evaluator
+
+    model = trainer.model
+    seen = []
+    evaluate = topk_evaluator.TopKEvaluator.evaluate
+
+    def recording(self, topk_index, *args, **kwargs):
+        seen.append(np.asarray(topk_index))
+        return evaluate(self, topk_index, *args, **kwargs)
+
+    topk_evaluator.TopKEvaluator.evaluate = recording
+    try:
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        score, result = trainer._valid_full_sort(is_test=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kernels.launches["spmm_csr"]
+        kernel_props = swap_propagators(model, "segment")
+        _, result_p = trainer._valid_full_sort(is_test=True)
+        restore_propagators(model, kernel_props)
+    finally:
+        topk_evaluator.TopKEvaluator.evaluate = evaluate
+    top, top_p = seen
+    n_users = model.dataset.num_users
+    if top.shape != (n_users, 50):
+        raise AssertionError(f"full-sort top-k shape {top.shape}")
+    rows = np.flatnonzero((top != top_p).any(axis=1))
+    gap = noise = 0.0
+    if len(rows):
+        with torch.no_grad():
+            user_k, item_k = model.eval_cache()
+            kernel_props = swap_propagators(model, "segment")
+            user_p, item_p = model.eval_cache()
+            restore_propagators(model, kernel_props)
+            u = torch.as_tensor(rows).cuda()
+            s_k, s_p = (user_k[u] @ item_k.T).cpu(), (user_p[u] @ item_p.T).cpu()
+        noise = float((s_k - s_p).abs().max())
+        gap = float((s_p.gather(1, torch.as_tensor(top[rows])) -
+                     s_p.gather(1, torch.as_tensor(top_p[rows]))).abs().max())
+        if not gap <= 2 * noise:
+            raise AssertionError(f"full-sort differs from segment by score gap "
+                                 f"{gap} (paths differ by {noise})")
+    check_unit_metrics(result, "full_sort")
+    if result != result_p:
+        raise AssertionError(f"full-sort metrics {result} != segment's "
+                             f"{result_p}")
+    csvs = os.listdir("recommend_topk")
+    with open(os.path.join("recommend_topk", csvs[0])) as f:
+        header, n_rows = f.readline(), 1 + sum(1 for _ in f)
+    log(f"[8 driver] full_sort test: {n_users} users x "
+        f"{model.dataset.num_items} items, k=50, {secs:.3f} s, "
+        f"{n_users / secs:.0f} users/s, {launches} spmm_csr launches; "
+        f"{(top == top_p).mean():.6f} of slots equal to segment's "
+        f"({len(rows)} rows differ, score gap of swaps {gap:.3e}, paths "
+        f"differ by up to {noise:.3e}); metrics equal; score {score:.4f}; "
+        f"CSV {csvs[0]} ({n_rows} lines, header {header.split()[:3]}...)")
+    log(f"[8 driver] full_sort test metrics: {json.dumps(result)}")
+    if n_rows != n_users + 1 or not header.startswith("id\ttop_0\t"):
+        raise AssertionError(f"top-k CSV {n_rows} lines, header {header!r}")
+    return dict(s=secs, users_per_s=n_users / secs, launches=launches,
+                rows_differ=int(len(rows)), metrics=result)
+
+
+def driver_sample(torch, kernels, trainer):
+    """_valid_sample(test): each test positive among its user's 500
+    negatives, against the `segment` path within 1e-6."""
+    model = trainer.model
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    score, result = trainer._valid_sample(is_test=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernels.launches["spmm_csr"]
+    kernel_props = swap_propagators(model, "segment")
+    _, result_p = trainer._valid_sample(is_test=True)
+    restore_propagators(model, kernel_props)
+    worst = max(abs(result[k] - result_p[k]) for k in result)
+    users, cand = trainer._sample_candidates(is_test=True)
+    log(f"[8 driver] sample test: {len(users)} rows x {cand.shape[1]} "
+        f"candidates, {secs:.3f} s, {launches} spmm_csr launches; max|d| "
+        f"against segment {worst:.3e}; {json.dumps(result)}")
+    check_unit_metrics(result, "sample")
+    if list(result) != list(result_p) or not worst <= 1e-6:
+        raise AssertionError(f"sampled metrics {result} vs segment's "
+                             f"{result_p}")
+    return dict(s=secs, rows=len(users), launches=launches, metrics=result,
+                max_abs_diff_segment=worst)
+
+
+def driver_studies(torch, trainer):
+    """The cold, sense and health-level studies on the CLI's trained
+    parameters, with the dataset's study splits loaded."""
+    from foodrec_tpu_torch.config import Config
+    from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
+    from foodrec_tpu_torch.data.device import DeviceData
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.models import get_model
+
+    cfg = Config("CIKM_Model", DATASET, {
+        "data_path": DATA_ROOT + "/", "seed": SEED,
+        "neg_sample_num": FOODCOM_SCALE["neg_num"], **STUDY_FLAGS})
+    derive_data_paths(cfg, DATASET)
+    t0 = time.perf_counter()
+    data = FoodData(cfg)
+    data.device_data = DeviceData.from_food_data(data)
+    load_s = time.perf_counter() - t0
+    model = get_model("CIKM_Model")(
+        cfg, data, generator=torch.Generator().manual_seed(SEED))
+    model.load_state_dict(trainer.model.state_dict())
+    study_trainer = Trainer(cfg, model)
+    out = {}
+    for name in ("cold_start_study", "sense_study", "health_level_study"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = getattr(study_trainer, name)()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        metrics = {k: v for k, v in result.items()
+                   if not k.endswith("predictions")}
+        for split, m in metrics.items():
+            check_unit_metrics(m, f"{name} {split}")
+        out[name] = dict(s=secs, metrics=metrics)
+        log(f"[8 driver] {name}: {secs:.3f} s; {json.dumps(metrics)}")
+    log(f"[8 driver] studies: splits loaded in {load_s:.3f} s "
+        f"(cold {len(data.cold_users)}, warm {len(data.warm_users)}, sense "
+        f"{len(data.sense_users)}, unsense {len(data.unsense_users)} users)")
+    return out
+
+
+def driver_resume(torch, data):
+    """A 2-epoch fit with save_state_every: 1 (each state kept), then a fit
+    resumed from epoch 0's state: the final parameters against the run that
+    was not stopped, bitwise; where not, the leaves whose gradient is not
+    repeatable name the op, and the resumed epoch's loss is held to
+    TRAJECTORY_TOL's mf bar."""
+    from foodrec_tpu_torch.config import Config
+    from foodrec_tpu_torch.data.dataset import derive_data_paths
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.models import get_model
+
+    def config(**extra):
+        cfg = Config("CIKM_Model", DATASET, {
+            "data_path": DATA_ROOT + "/", "seed": SEED,
+            "neg_sample_num": FOODCOM_SCALE["neg_num"], "epochs": 2,
+            "ckp_root": "ckp_resume/", **extra})
+        derive_data_paths(cfg, DATASET)
+        return cfg
+
+    def model(cfg, seed):
+        return get_model("CIKM_Model")(
+            cfg, data, generator=torch.Generator().manual_seed(seed))
+
+    cfg = config(save_state_every=1)
+    straight = Trainer(cfg, model(cfg, SEED))
+    states, save_s = [], []
+    save = straight._save_state
+
+    def keep_each(path, epoch, cur_step):
+        t0 = time.perf_counter()
+        save(path, epoch, cur_step)
+        save_s.append(time.perf_counter() - t0)
+        states.append(f"{path}.epoch{epoch}")
+        os.replace(path, states[-1])
+
+    straight._save_state = keep_each
+    straight.fit(data, hyper_tuple=(SEED,))
+    size = os.path.getsize(states[0])
+
+    resumed = Trainer(config(resume_from=states[0]), model(cfg, SEED + 1))
+    resume = resumed._resume
+    load_s = []
+
+    def timed_resume(path):
+        t0 = time.perf_counter()
+        out = resume(path)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+        return out
+
+    resumed._resume = timed_resume
+    resumed.fit(data, hyper_tuple=(SEED,))
+    a, b = straight.model.state_dict(), resumed.model.state_dict()
+    differ = {k: float((a[k] - b[k]).abs().max()) for k in a
+              if not torch.equal(a[k], b[k])}
+    loss_gap = abs(resumed.train_loss_dict[1] / straight.train_loss_dict[1] - 1)
+    log(f"[8 driver] resume: state {size / 2 ** 20:.1f} MiB, save "
+        f"{[round(x, 3) for x in save_s]} s, load {load_s[0]:.3f} s; epoch 1 "
+        f"loss {straight.train_loss_dict[1]!r} straight, "
+        f"{resumed.train_loss_dict[1]!r} resumed; "
+        f"{len(a) - len(differ)} of {len(a)} leaves bitwise equal")
+    nondeterministic = []
+    if differ:
+        # which gradients are not repeatable: the same batch twice from the
+        # same parameters
+        batch = draw_batches(torch, data.device_data, 1,
+                             cfg["train_batch_size"], SEED + 3)[0]
+        probe = resumed.model
+        probe.attn_dropout = 0.0
+        _, g1 = loss_and_grads(torch, probe, batch)
+        g1 = {k: g.clone() for k, g in g1.items()}
+        _, g2 = loss_and_grads(torch, probe, batch)
+        nondeterministic = sorted(k for k in g1 if not torch.equal(g1[k], g2[k]))
+        log(f"[8 driver] resume not bitwise: max|d| by leaf {differ}; "
+            f"leaves whose gradient differs between two runs of one step: "
+            f"{nondeterministic}; epoch 1 loss relative gap {loss_gap:.3e} "
+            f"(bar {TRAJECTORY_TOL[0]})")
+        if not loss_gap <= TRAJECTORY_TOL[0]:
+            raise AssertionError(f"resumed epoch loss differs by {loss_gap}")
+    else:
+        log("[8 driver] resume: the final parameters equal the run that was "
+            "not stopped, bitwise")
+    return dict(bitwise=not differ, max_abs_diff=differ,
+                nondeterministic_grads=nondeterministic, state_mib=size / 2 ** 20,
+                save_s=save_s, load_s=load_s[0], epoch1_loss_gap=loss_gap)
+
+
+def phase_driver(torch, kernels):
+    """Phase 8: the experiment driver at Foodcom scale, run with
+    DRIVER_ROOT as the working directory (restored after)."""
+    import shutil
+
+    shutil.rmtree(DRIVER_ROOT, ignore_errors=True)
+    os.makedirs(DRIVER_ROOT)
+    cwd = os.getcwd()
+    os.chdir(DRIVER_ROOT)
+    try:
+        cli = driver_cli(torch, kernels)
+        trainer = cli["trainer"]
+        data = trainer.model.dataset
+        out = dict(cli={k: v for k, v in cli.items() if k != "trainer"})
+        out["checkpoint"] = driver_checkpoint(torch, cli)
+        out["full_sort"] = driver_full_sort(torch, kernels, trainer)
+        out["sample"] = driver_sample(torch, kernels, trainer)
+        out["studies"] = driver_studies(torch, trainer)
+        del trainer, cli
+        torch.cuda.empty_cache()
+        out["mg"] = driver_mg(torch, kernels, data)
+        torch.cuda.empty_cache()
+        out["resume"] = driver_resume(torch, data)
+    finally:
+        os.chdir(cwd)
+    return out
+
+
 def kernel_entry(per_graph, per_key, **fields):
     """A kernels-JSON entry: times summed over the launches of one `per` on
     the main path's graphs; the power-law graphs (main_path False) stand
@@ -1329,7 +1763,7 @@ def main():
         return 2
     from foodrec_tpu_torch.ops import _kernels, spmm
 
-    phase_device(torch)
+    card = phase_device(torch)
     phase_build(_kernels)
     phase_random_graphs(torch, _kernels, spmm)
     power_law = phase_power_law(torch, _kernels, spmm)
@@ -1348,6 +1782,7 @@ def main():
                   if k in TIMED_ZOO_GRAPHS}
     per_graph.update(phase_times(torch, spmm, zoo_graphs))
     bwd_graph.update(phase_backward_times(torch, spmm, zoo_graphs))
+    driver = phase_driver(torch, _kernels)
 
     fwd_by_path = {"serve": served["launches"],
                    "train_epoch": trained["launches"]["spmm_csr"]}
@@ -1356,6 +1791,12 @@ def main():
         fwd_by_path[f"{name} serve"] = z["serve"]
         fwd_by_path[f"{name} train_epoch"] = z["train"]["spmm_csr"]
         bwd_by_path[f"{name} train_epoch"] = z["train"]["spmm_csr_bwd"]
+    for path, launches in (("driver cli", driver["cli"]["launches"]),
+                           ("mg train_epoch", driver["mg"]["launches"])):
+        fwd_by_path[path] = launches["spmm_csr"]
+        bwd_by_path[path] = launches["spmm_csr_bwd"]
+    fwd_by_path["full_sort test"] = driver["full_sort"]["launches"]
+    fwd_by_path["sample test"] = driver["sample"]["launches"]
     models = {name: dict(
         kernel_hops_per_forward=z["hops"], epoch_s=z["epoch_s"],
         epoch_steps=z["n_steps"], steps_per_s=z["n_steps"] / z["epoch_s"],
@@ -1374,7 +1815,8 @@ def main():
                                for g in z["graphs"].values()]),
             per="one CIKM_Model eval_cache: 2 ri_prop hops + 1 ui_prop hop",
             evaluate_test_s=served["eval_test_s"], timing_floor=floor,
-            models=models, lightgcn_gate=gate),
+            models=models, lightgcn_gate=gate,
+            driver={k: v for k, v in driver.items() if k != "resume"}),
         kernel_entry(
             bwd_graph, "launches_per_train_step", name="spmm_csr_bwd",
             replaces="foodrec_tpu/ops/spmm.py:129 (custom VJP :263-273)",
@@ -1389,8 +1831,10 @@ def main():
             steps_per_s=trained["n_steps"] / trained["epoch_s"],
             busy_share_20_steps=trained["busy_share"],
             peak_memory_gib=trained["peak_gb"],
-            calculate_loss_grad_max_abs_err=trained["model_grad_err"]),
+            calculate_loss_grad_max_abs_err=trained["model_grad_err"],
+            driver_resume=driver["resume"]),
     ]}
+    log(card)  # again beside the results, for a reader of the output's end
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

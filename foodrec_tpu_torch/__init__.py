@@ -12,8 +12,11 @@ points run on `cuda` unless the caller passes `use_gpu: False`, and they raise
 when CUDA is asked for and absent. The one TPU kernel of the JAX package, the
 Pallas SpMM, is the hand-written CUDA kernel `csrc/spmm_csr.cu`.
 
-This slice ports serving: CIKM_Model's graph propagation, by-user evaluation
-and full-catalog top-k. Training arrives with the next slice (ROADMAP.md).
+All six models train and serve through it. The experiment driver is
+ported too: `python -m foodrec_tpu_torch.runner -m MODEL -d DATASET [--mg]`
+runs `engine/quick_start.py`'s grid search, with Mirror Gradient,
+checkpoints and resume, and the by-user, full-sort, sampled and study
+evaluations. What is left to port is in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

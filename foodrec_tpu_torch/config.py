@@ -4,8 +4,7 @@
 Reproduces the reference semantics (FoodRec/utils/configurator.py:11-139):
 
   * merge order: overall.yaml -> dataset/{dataset}.yaml (optional) ->
-    model/{model}.yaml -> runtime dict (highest priority); the JAX package's
-    mg.yaml layer is not ported (no config of this slice reads it)
+    model/{model}.yaml -> mg.yaml (if mg) -> runtime dict (highest priority)
   * `hyper_parameters` lists from every file are concatenated, and 'seed' is
     force-included (configurator.py:106-108)
   * a custom yaml float resolver so `1e-4` parses as float
@@ -54,12 +53,12 @@ def _yaml_loader():
 class Config:
     """Dict-like layered config; missing keys return None."""
 
-    def __init__(self, model=None, dataset=None, config_dict=None):
+    def __init__(self, model=None, dataset=None, config_dict=None, mg=False):
         config_dict = dict(config_dict or {})
         config_dict["model"] = model
         config_dict["dataset"] = dataset
 
-        self.final_config_dict = self._load_file_configs(config_dict)
+        self.final_config_dict = self._load_file_configs(config_dict, mg)
         # runtime dict has the highest priority (configurator.py:58-60)
         self.final_config_dict.update(config_dict)
         self._set_default_parameters()
@@ -67,13 +66,15 @@ class Config:
         self.final_config_dict["device"] = str(
             resolve_device("cuda" if use_gpu else "cpu"))
 
-    def _load_file_configs(self, config_dict):
+    def _load_file_configs(self, config_dict, mg):
         merged = {}
         files = [
             os.path.join(_CONFIG_DIR, "overall.yaml"),
             os.path.join(_CONFIG_DIR, "dataset", f"{config_dict['dataset']}.yaml"),
             os.path.join(_CONFIG_DIR, "model", f"{config_dict['model']}.yaml"),
         ]
+        if mg:
+            files.append(os.path.join(_CONFIG_DIR, "mg.yaml"))
         hyper_parameters = []
         loader = _yaml_loader()
         for path in files:
@@ -119,3 +120,25 @@ class Config:
 
     def __repr__(self):
         return self.__str__()
+
+
+def hyper_combinations(config):
+    """Expand config['hyper_parameters'] into the grid-search cartesian product
+    (copy of `foodrec_tpu/config.py:144-165`; FoodRec/utils/quick_start.py:
+    54-60): each hyper_parameters entry names a config key whose value is a
+    list of candidates; keys whose value is falsy expand to [None]."""
+    from itertools import product
+
+    names = list(config["hyper_parameters"])
+    if "seed" not in names:
+        names = ["seed"] + names
+    grids = []
+    for name in names:
+        val = config[name]
+        if not val:
+            grids.append([None])
+        elif isinstance(val, (list, tuple)):
+            grids.append(list(val))
+        else:
+            grids.append([val])
+    return names, list(product(*grids))

@@ -25,13 +25,20 @@ native extension):
   recipe_health_level_multi_hot_dict.pkl
   recipe_cal_level_dict.pkl         item -> calorie level (SCHGN)
 
-Not ported yet (ROADMAP.md): the recipe-recipe and recipe-health graphs,
-the scalar health level dict, the health-stratified sampling buckets, the
-study splits and the per-user training dicts (the studies read them).
+  cold_start/data.{cold,warm}.{rating,negative}, sense_user/data.{sense,
+  unsense}.{rating,negative}, health_level/data_health{0..5}.{rating,
+  negative}                         the study splits, under cold_study,
+                                    sense_study and health_level_study
+
+Not ported yet (ROADMAP.md), and raising NotImplementedError when a config
+sets them: the recipe-recipe and recipe-health graphs and the scalar health
+level dict (`_UNPORTED_FLAGS`). The health-stratified sampling buckets are
+refused by the Trainer, which reads `health_neg_sample`.
 """
 
 import os
 import pickle
+from collections import defaultdict
 
 import numpy as np
 
@@ -78,11 +85,32 @@ def _read_negative_file(path):
     return negatives
 
 
+# flags of the JAX package's GraphData whose files the port does not read
+# (foodrec_tpu/data/dataset.py:252-285)
+_UNPORTED_FLAGS = ("load_RecipeRecipe_graph", "load_RecipeHealth_graph",
+                   "use_health_level", "load_RecipeRecipeCo_graph",
+                   "load_RecipeRecipeIng_graph",
+                   "load_RecipeRecipeHealth_graph")
+
+
+def _read_study_split(path):
+    """(per-user item arrays, user ids, per-user negatives) of one study
+    split: `{path}.rating` grouped by user and `{path}.negative`."""
+    ratings, users = _group_by_consecutive_user(
+        *_read_rating_file(path + ".rating")[:2])
+    return ratings, users, _read_negative_file(path + ".negative")
+
+
 class FoodData:
-    """The dataset attributes the ported models read (reference:
-    dataset.py:11-370)."""
+    """The dataset attributes the ported models, the trainer's evaluations
+    and the studies read (reference: dataset.py:11-370)."""
 
     def __init__(self, config):
+        for flag in _UNPORTED_FLAGS:
+            if config[flag]:
+                raise NotImplementedError(
+                    f"{flag} is not ported yet (ROADMAP.md); no ported model "
+                    "reads its file")
         self.args_config = config
         interaction_path = config["interaction_data_path"]
         ingre_path = config["ingre_data_path"]
@@ -118,11 +146,17 @@ class FoodData:
                         np.concatenate([va_i, te_i]).tolist()):
             self.validTestRatings[u].add(i)
 
-        # id ranges over all splits (dataset.py:218-231)
+        # id ranges over all splits (dataset.py:218-231); the JAX package
+        # takes the item range after shifting the items past the users
+        # (dataset.py:195-203), so item_range is in that id space
         users = np.concatenate([tr_u, va_u, te_u])
-        items = np.concatenate([tr_i, va_i, te_i])
+        items = np.concatenate([tr_i, va_i, te_i]) + int(users.max()) + 1
+        self.user_range = (int(users.min()), int(users.max()))
+        self.item_range = (int(items.min()), int(items.max()))
         self.n_users = int(users.max() - users.min() + 1)
         self.n_items = int(items.max() - items.min() + 1)
+        self.n_train, self.n_valid, self.n_test = len(tr_u), len(va_u), len(te_u)
+        self.inter_num = self.n_train + self.n_valid + self.n_test
 
         # memory-mapped: the image table is 245 MB at Foodcom scale
         self.embImage = np.load(
@@ -143,6 +177,28 @@ class FoodData:
         # a pickle this dataset's own generator or preprocessing wrote
         with open(coo_path, "rb") as f:
             self.train_coo_matrix = pickle.load(f).astype(np.float32)
+
+        # the study splits (dataset.py:155-181)
+        if config["cold_study"]:
+            p = interaction_path + "cold_start/data."
+            (self.coldRatings, self.cold_users,
+             self.coldNegatives) = _read_study_split(p + "cold")
+            (self.warmRatings, self.warm_users,
+             self.warmNegatives) = _read_study_split(p + "warm")
+        if config["sense_study"]:
+            p = interaction_path + "sense_user/data."
+            (self.senseRatings, self.sense_users,
+             self.senseNegatives) = _read_study_split(p + "sense")
+            (self.unsenseRatings, self.unsense_users,
+             self.unsenseNegatives) = _read_study_split(p + "unsense")
+        if config["health_level_study"]:
+            p = interaction_path + "health_level/data_health"
+            self.healthRatings = defaultdict(list)
+            self.healthNegatives = defaultdict(list)
+            self.healthUsers = defaultdict(list)
+            for hl in range(6):
+                (self.healthRatings[hl], self.healthUsers[hl],
+                 self.healthNegatives[hl]) = _read_study_split(p + str(hl))
 
         # flag-gated graphs (dataset.py:243-300)
         graph_path = config["graph_data_path"]
@@ -175,6 +231,17 @@ class FoodData:
     def _load_ingredient_num(path):
         return np.loadtxt(path, delimiter="\t", dtype=np.int64,
                           ndmin=2)[:, 1].tolist()
+
+    def __str__(self):
+        info = [str(self.args_config["dataset"])]
+        info.append(f"The number of users: {self.n_users}")
+        info.append(f"Average actions of users: {self.inter_num / self.n_users}")
+        info.append(f"The number of items: {self.n_items}")
+        info.append(f"Average actions of items: {self.inter_num / self.n_items}")
+        info.append(f"The number of inters: {self.inter_num}")
+        sparsity = 1 - self.inter_num / self.n_users / self.n_items
+        info.append(f"The sparsity of the dataset: {sparsity * 100}%")
+        return "\n".join(info)
 
 
 def derive_data_paths(config, dataset_name):

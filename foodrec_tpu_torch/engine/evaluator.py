@@ -89,7 +89,7 @@ def by_user_metrics(scores, n_pos, n_cand, neg_num, max_k=20):
 
 
 def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
-                     device="cuda"):
+                     device="cuda", return_per_user=False):
     """Run the by-user eval over a padded EvalSet on `device`.
 
     score_fn(users int64 [B], cand int64 [B, C]) -> float32 [B, C], called on
@@ -101,7 +101,9 @@ def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
 
     Returns (valid_score, metrics_dict) with the reference's metric keys
     (AUC, Recall@10/20, NDCG@10/20); valid_score = NDCG@20
-    (trainer.py:272-282).
+    (trainer.py:272-282). With `return_per_user`, (valid_score, metrics,
+    per-user metric arrays, the scores [U, C]) as host numpy, as the JAX
+    package returns them (evaluator.py:114-137).
     """
     u = eval_set.n_users
     pad = (-u) % batch_size
@@ -115,12 +117,15 @@ def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
 
     keys = ("auc", "recall@10", "recall@20", "ndcg@10", "ndcg@20")
     per_user = {k: [] for k in keys}
+    preds = []
     for s in range(0, len(users), batch_size):
         e = s + batch_size
         scores = score_fn(users[s:e], cand[s:e])
         m = by_user_metrics(scores, n_pos[s:e], n_cand[s:e], neg_num=neg_num)
         for k in keys:
             per_user[k].append(m[k])
+        if return_per_user:
+            preds.append(scores)
 
     per_user = {k: torch.cat(v)[:u].cpu().numpy()
                 for k, v in per_user.items()}
@@ -132,4 +137,7 @@ def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
         "NDCG@10": float(per_user["ndcg@10"].mean()),
         "NDCG@20": float(per_user["ndcg@20"].mean()),
     }
+    if return_per_user:
+        return (metrics["NDCG@20"], metrics, per_user,
+                torch.cat(preds)[:u].cpu().numpy())
     return metrics["NDCG@20"], metrics

@@ -1,6 +1,10 @@
 # coding: utf-8
-"""Full-catalog top-k (counterpart of `full_sort_topk` in
-`foodrec_tpu/engine/topk_evaluator.py`; reference FoodRec/utils/topk_evaluator.py).
+"""Full-catalog top-k and its evaluators (counterpart of
+`foodrec_tpu/engine/topk_evaluator.py`; reference
+FoodRec/utils/topk_evaluator.py): `full_sort_topk` on the device,
+`TopKEvaluator` (Recall, Recall2, Precision, NDCG and MAP at each `topk`
+over the hit matrix, engine/matrics.py, and the top-k CSV dump) and
+`sample_rank_metrics` on the host.
 
 Answers "top-k recipes for these users": a users x items scoring sweep over
 item chunks with a running top-k merge, so memory stays [B, k + chunk]. On
@@ -15,9 +19,17 @@ set to -inf. A model whose scores mix the samples of a block (SCHGN's
 faithful interleave) then scores every item as the JAX package does.
 """
 
+import os
+
+import numpy as np
 import torch
 
 from foodrec_tpu_torch.engine.evaluator import descending_order
+from foodrec_tpu_torch.engine.matrics import metrics_dict
+from foodrec_tpu_torch.utils.misc import get_local_time
+
+topk_metrics = {m.lower(): m for m in
+                ["Recall", "Recall2", "Precision", "NDCG", "MAP"]}
 
 
 def item_chunks(n_items, item_chunk, device):
@@ -52,3 +64,100 @@ def full_sort_topk(score_fn, users, n_items, k, user_batch=64,
             best_i = merged_i.gather(1, sel)
         out.append(best_i)
     return torch.cat(out)[:u].cpu()
+
+
+class TopKEvaluator:
+    """Metrics of a top-k list per user (topk_evaluator.py:142-207): keys
+    are the lower-case metric names at each k (`recall@20`), rounded to 4
+    places."""
+
+    def __init__(self, config):
+        self.config = config
+        self.metrics = config["metrics"]
+        self.topk = config["topk"]
+        self.save_recom_result = config["save_recommended_topk"]
+        self._check_args()
+
+    def evaluate(self, topk_index, eval_data, is_test=False, idx=0):
+        """topk_index: [U, max_k] item ids; eval_data = (pos_user, pos_items,
+        pos_len_list). On the test split with `save_recommended_topk`, the
+        top-k lists go to `{recommend_topk}/{model}-{dataset}-idx{idx}-
+        top{max_k}-{time}.csv`, in the JAX package's format: a tab-separated
+        `id top_0 ... top_{k-1}` header, then one row of ints a user."""
+        pos_user, pos_items, pos_len_list = eval_data
+        pos_len = np.asarray(pos_len_list)
+        topk_index = np.asarray(topk_index)
+
+        if self.save_recom_result and is_test:
+            max_k = max(self.topk)
+            dir_name = os.path.abspath(self.config["recommend_topk"]
+                                       or "recommend_topk/")
+            os.makedirs(dir_name, exist_ok=True)
+            file_path = os.path.join(dir_name, "{}-{}-idx{}-top{}-{}.csv".format(
+                self.config["model"], self.config["dataset"], idx, max_k,
+                get_local_time()))
+            rows = np.column_stack([np.asarray(pos_user, np.int64),
+                                    topk_index.astype(np.int64)])
+            header = "\t".join(["id"] + [f"top_{i}" for i in range(max_k)])
+            np.savetxt(file_path, rows, fmt="%d", delimiter="\t",
+                       header=header, comments="")
+
+        if len(pos_len) != len(topk_index):
+            raise ValueError(f"{len(pos_len)} users' positives for "
+                             f"{len(topk_index)} top-k rows")
+        bool_rec = np.zeros(topk_index.shape, dtype=bool)
+        for row, (m, n) in enumerate(zip(pos_items, topk_index)):
+            bool_rec[row] = np.isin(n, np.asarray(m))
+
+        metric_dict = {}
+        for metric in self.metrics:
+            value = metrics_dict[metric.lower()](bool_rec, pos_len)
+            for k in self.topk:
+                metric_dict[f"{metric}@{k}"] = round(float(value[k - 1]), 4)
+        return metric_dict
+
+    def _check_args(self):
+        if isinstance(self.metrics, str):
+            self.metrics = [self.metrics]
+        if not isinstance(self.metrics, list):
+            raise TypeError("metrics must be str or list")
+        for m in self.metrics:
+            if m.lower() not in topk_metrics:
+                raise ValueError(
+                    f"There is no user grouped topk metric named {m}!")
+        self.metrics = [m.lower() for m in self.metrics]
+
+        if isinstance(self.topk, int):
+            self.topk = [self.topk]
+        if not isinstance(self.topk, list):
+            raise TypeError("The topk must be a integer, list")
+        for k in self.topk:
+            if k <= 0:
+                raise ValueError(
+                    "topk must be a positive integer or a list of positive "
+                    f"integers, but get `{k}`")
+
+    def __str__(self):
+        return ("The TopK Evaluator Info:\n\tMetrics:["
+                + ", ".join(topk_metrics[m] for m in self.metrics)
+                + "], TopK:[" + ", ".join(map(str, self.topk)) + "]")
+
+
+def sample_rank_metrics(pred_list, neg_num):
+    """Rank-of-positive metrics for the sampled path: candidates per row =
+    [neg_1..neg_K, pos] (topk_evaluator.py:210-232; reference
+    trainer.py:317-349). Host numpy; `neg_num` is unused, as there."""
+    pred_list = np.asarray(pred_list)
+    auc = np.sum(pred_list[:, :-1] < pred_list[:, -1:]) / (
+        len(pred_list) * pred_list.shape[1] - len(pred_list))
+    rank = (-pred_list).argsort().argsort()[:, -1]
+
+    mrr = float(np.mean(1.0 / (rank + 1.0)))
+    hits, ndcgs = {}, {}
+    for k in (1, 5, 10, 20):
+        hit = rank < k
+        hits[f"HIT@{k}"] = float(np.mean(hit))
+        ndcgs[f"NDCG@{k}"] = float(np.mean(
+            np.where(hit, 1.0 / np.log2(rank + 2.0), 0.0)))
+    # the reference dict's key order: AUC, MRR, HIT@*, NDCG@*
+    return {"AUC": float(auc), "MRR": mrr, **hits, **ndcgs}

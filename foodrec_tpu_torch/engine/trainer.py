@@ -1,7 +1,8 @@
 # coding: utf-8
-"""Trainer: the training epoch, `fit` and by-user evaluation (counterpart of
-`foodrec_tpu/engine/trainer.py:48-160, 164-478, 481-644`; reference
-FoodRec/common/trainer.py:87-503).
+"""Trainer: the training epoch, Mirror Gradient, `fit` with checkpoints and
+resume, and the by-user, full-sort, sampled and study evaluations
+(counterpart of `foodrec_tpu/engine/trainer.py`; reference
+FoodRec/common/trainer.py:87-503, 631-804).
 
 An epoch runs on the device without host round trips between steps: a
 device permutation of the train pairs, cut into `ceil(n_train / bs)` batches
@@ -10,33 +11,56 @@ the packed exclusion bitmap (data/sampling.py); one Adam step per batch on
 the summed loss parts. Semantics kept from the JAX package:
 
   * L2 weight decay added into the gradient, then Adam with eps 1e-8
-    (torch's `Adam(weight_decay=...)`), and LambdaLR lr0 * s0 ** (epoch / s1)
-    stepped once per epoch (trainer.py:48-68, 94-108)
-  * optional global-norm clipping, scale = min(1, max / (||g|| + 1e-6))
+    (torch's `Adam(weight_decay=...)`) (trainer.py:48-68)
+  * the learning rate lr0 * s0 ** ((count // n_batches) / s1) of optax's
+    update count (trainer.py:94-108): the JAX package's quirk, kept. Without
+    Mirror Gradient that is LambdaLR's lr0 * s0 ** (epoch / s1) stepped once
+    per epoch, which `scheduler` holds for the log; Mirror Gradient's second
+    update advances the count, so its lr reaches the next epoch's value
+    before the epoch ends (the reference steps LambdaLR per epoch instead)
+  * optional global-norm clipping, scale = min(1, max / (||g|| + 1e-6)),
+    on each update
+  * Mirror Gradient (`mg=True`, trainer.py:306-322): on every batch whose
+    index in the epoch is a multiple of `beta`, a step on alpha1 * g, the
+    batch replayed at the new parameters with the same dropout draws, and a
+    step on -alpha2 * g2
   * the loss parts summed on the device; the NaN check runs once every
     `epoch_scan_chunk` steps, the JAX package's granularity, and the epoch
     stops there (trainer.py:459-463)
+  * `req_training: False` evaluates the initial parameters without
+    training (trainer.py:538-540)
   * eval every `eval_step` epochs, early stopping on `valid_metric` with
-    patience `stopping_step`, a host snapshot of the best parameters, and the
-    final test on them (trainer.py:588-617)
+    patience `stopping_step`, a host snapshot of the best parameters (saved
+    under `ckp_root` with `saved=True`), and the final test on them
+    (trainer.py:588-617); `save_state_every` / `resume_from` for a run that
+    stops and goes on (trainer.py:513-530, 574-586)
 
 Random streams come from one `torch.Generator` on the model's device, seeded
 from config['seed']: the permutation, the negatives and the dropout masks.
-Not ported yet (ROADMAP.md): Mirror Gradient, the cosine probe, row-sparse
-Adam, health-stratified negatives, checkpoints and resume, the padded final
-batch (`exact_final_batch: False`), learners other than Adam, and the
-full-sort and sampled eval paths.
+Not ported yet (ROADMAP.md): the cosine probe, row-sparse Adam,
+health-stratified negatives, the padded final batch (`exact_final_batch:
+False`), learners other than Adam, the device mesh (`mesh_shape`) and the
+profiler trace (`profile_trace_dir`); each raises where it is set.
 """
 
 import functools
 import logging
+import os
+import re
 import time
 
 import numpy as np
 import torch
 
+from foodrec_tpu_torch.data.device import build_eval_set
 from foodrec_tpu_torch.data.sampling import sample_negatives
+from foodrec_tpu_torch.engine import checkpoint as ckpt
 from foodrec_tpu_torch.engine.evaluator import evaluate_by_user
+from foodrec_tpu_torch.engine.topk_evaluator import (
+    TopKEvaluator,
+    full_sort_topk,
+    sample_rank_metrics,
+)
 from foodrec_tpu_torch.utils.misc import dict2str, early_stopping
 
 
@@ -50,9 +74,9 @@ def build_optimizer(learner, params, lr, weight_decay):
 
 
 class Trainer:
-    def __init__(self, config, model):
-        for key in ("health_neg_sample", "calcu_cos_similarity",
-                    "resume_from", "save_state_every"):
+    def __init__(self, config, model, mg=False):
+        for key in ("health_neg_sample", "calcu_cos_similarity", "mesh_shape",
+                    "profile_trace_dir"):
             if config[key]:
                 raise NotImplementedError(
                     f"{key} is not ported yet (ROADMAP.md)")
@@ -70,6 +94,11 @@ class Trainer:
         self.valid_metric_bigger = config["valid_metric_bigger"]
         self.eval_batch_size = config["eval_batch_size"]
         self.neg_sample_num = config["neg_sample_num"]
+        self.req_training = config["req_training"]
+        self.mg = mg
+        self.alpha1 = config["alpha1"]
+        self.alpha2 = config["alpha2"]
+        self.beta = config["beta"]
 
         dd = model.dd
         self.train_batch_size = config["train_batch_size"]
@@ -81,9 +110,19 @@ class Trainer:
         self.n_tries = config["neg_sample_tries"] or 32
 
         s0, s1 = config["learning_rate_scheduler"] or [1.0, 50]
+        lr0, n_batches = config["learning_rate"], self.n_batches
+
+        def lr_schedule(count):
+            return lr0 * s0 ** ((count // n_batches) / s1)
+
+        self.lr_schedule = lr_schedule
+        self.n_updates = 0  # optax's update count, which the lr reads
+        self.epoch_batch = 0  # the index in the epoch of the next batch
         self.optimizer = build_optimizer(
-            config["learner"], model.parameters(), config["learning_rate"],
+            config["learner"], model.parameters(), lr0,
             float(config["weight_decay"] or 0.0))
+        # the epoch's lr, logged as the JAX package logs
+        # lr_schedule(epoch * n_batches)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
             self.optimizer, lambda epoch: s0 ** (epoch / s1))
 
@@ -104,22 +143,61 @@ class Trainer:
     # ------------------------------------------------------------------ train
     def train_steps(self, batches):
         """One optimizer step per `(u, pos, neg)` batch of int64 id tensors
-        on the model's device; returns the loss parts summed over the
-        batches, [n_parts] on the device."""
-        model, optimizer = self.model, self.optimizer
+        on the model's device, two for a Mirror Gradient batch. Returns the
+        loss parts summed over the batches (a Mirror Gradient batch's first
+        pass), [n_parts] on the device.
+
+        `beta` counts a batch's index in the epoch, `epoch_batch`: the
+        batches stepped since `train_epoch` began the epoch, modulo
+        n_batches, so that whole epochs passed through here one after
+        another (the lockstep tests' replays) index alike."""
         total = None
         for u, pos, neg in batches:
-            parts = model.calculate_loss(u, pos, neg, generator=self.generator)
-            optimizer.zero_grad(set_to_none=True)
-            sum(parts).backward()
-            if self.clip_grad_norm:
-                torch.nn.utils.clip_grad_norm_(
-                    model.parameters(),
-                    self.clip_grad_norm.get("max_norm", 1.0))
-            optimizer.step()
-            parts = torch.stack(parts).detach()
+            if self.mg and self.epoch_batch % self.beta == 0:
+                parts = self._mirror_step(u, pos, neg)
+            else:
+                parts = self._backward(u, pos, neg)
+                self._update()
+            self.epoch_batch = (self.epoch_batch + 1) % self.n_batches
             total = parts if total is None else total + parts
         return total
+
+    def _backward(self, u, pos, neg):
+        """The loss parts of one batch, their sum's gradient left in .grad."""
+        parts = self.model.calculate_loss(u, pos, neg, generator=self.generator)
+        self.optimizer.zero_grad(set_to_none=True)
+        sum(parts).backward()
+        return torch.stack(parts).detach()
+
+    def _update(self, scale=None):
+        """One optimizer step on the gradients times `scale`, clipped, at
+        the lr of the update count."""
+        if scale is not None:
+            for p in self.model.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(scale)
+        if self.clip_grad_norm:
+            torch.nn.utils.clip_grad_norm_(
+                self.model.parameters(),
+                self.clip_grad_norm.get("max_norm", 1.0))
+        lr = self.lr_schedule(self.n_updates)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.n_updates += 1
+
+    def _mirror_step(self, u, pos, neg):
+        """Mirror Gradient on one batch: a step on alpha1 * g, then the batch
+        again at the new parameters, the generator restored so that it draws
+        the same dropout masks (the JAX package replays the same key), and a
+        step on -alpha2 * g2. Returns the first pass's loss parts."""
+        state = self.generator.get_state()
+        parts = self._backward(u, pos, neg)
+        self._update(self.alpha1)
+        self.generator.set_state(state)
+        self._backward(u, pos, neg)
+        self._update(-self.alpha2)
+        return parts
 
     def _batches(self, perm, first, last):
         """Batches `first` to `last - 1` of the epoch's permutation, with
@@ -138,6 +216,7 @@ class Trainer:
         `epoch_scan_chunk` steps ends the epoch early."""
         perm = torch.randperm(self.n_train, generator=self.generator,
                               device=self.model.device)
+        self.epoch_batch = 0
         loss_parts = None
         for first in range(0, self.n_batches, self.chunk):
             parts = self.train_steps(self._batches(
@@ -148,33 +227,56 @@ class Trainer:
         return loss_parts
 
     # ------------------------------------------------------------------- fit
-    def fit(self, dataset, valid_data=None, test_data=None):
+    def fit(self, dataset, valid_data=None, test_data=None, hyper_tuple=None,
+            saved=False):
         """Train for config['epochs'] epochs (fewer on early stop or a NaN
-        loss), evaluating every `eval_step`; returns (best valid score, best
-        valid metrics, test metrics of the best parameters), and leaves the
-        best parameters in the model. The eval sets default to
-        `dataset.device_data`'s."""
+        loss, none with `req_training: False`), evaluating every
+        `eval_step`; returns (best valid score, best valid metrics, test
+        metrics of the best parameters), and leaves the best parameters in
+        the model. The eval sets default to `dataset.device_data`'s.
+        `saved` writes each new best to
+        `{ckp_root}/{model}-{dataset}-{hyper_parameters}={hyper_tuple}.pkl`,
+        the JAX package's name."""
+        config = self.config
         dd = dataset.device_data
         valid_data = dd.eval_valid if valid_data is None else valid_data
         test_data = dd.eval_test if test_data is None else test_data
-        best_state = self._host_snapshot()
-        cur_step = 0
+        ckp_root = config["ckp_root"] or "./ckp/"
+        ckpt_path = os.path.join(
+            ckp_root,
+            f"{config['model']}-{config['dataset']}-"
+            f"{config['hyper_parameters']}={hyper_tuple}.pkl")
 
-        for epoch_idx in range(self.epochs):
+        start_epoch = cur_step = 0
+        if config["resume_from"]:
+            start_epoch, cur_step = self._resume(config["resume_from"])
+        best_state = self._host_snapshot()
+
+        for epoch_idx in range(start_epoch, self.epochs):
             t0 = time.time()
-            loss_parts = self.train_epoch().cpu().numpy()
-            if not np.isfinite(loss_parts).all():
-                self.logger.info(f"Loss is nan at epoch: {epoch_idx}. Exiting.")
-                break
-            self.train_loss_dict[epoch_idx] = float(loss_parts.sum())
-            lr_now = self.scheduler.get_last_lr()[0]
-            parts_str = ", ".join(
-                f"train_loss{i + 1}: {v / self.n_batches:.4f}"
-                for i, v in enumerate(loss_parts))
-            self.logger.info(
-                f"epoch {epoch_idx} training [time: {time.time() - t0:.2f}s, "
-                f"lr: {lr_now:.6f}, {parts_str}]")
-            self.scheduler.step()
+            if self.req_training:
+                loss_parts = self.train_epoch().cpu().numpy()
+                if not np.isfinite(loss_parts).all():
+                    self.logger.info(
+                        f"Loss is nan at epoch: {epoch_idx}. Exiting.")
+                    break
+                self.train_loss_dict[epoch_idx] = float(loss_parts.sum())
+                lr_now = self.scheduler.get_last_lr()[0]
+                parts_str = ", ".join(
+                    f"train_loss{i + 1}: {v / self.n_batches:.4f}"
+                    for i, v in enumerate(loss_parts))
+                self.logger.info(
+                    f"epoch {epoch_idx} training [time: "
+                    f"{time.time() - t0:.2f}s, lr: {lr_now:.6f}, {parts_str}]")
+                self.scheduler.step()
+
+            every = config["save_state_every"]
+            if every and (epoch_idx + 1) % every == 0:
+                # the JAX package's name, sanitized for its tensorstore
+                name = re.sub(r"[^A-Za-z0-9._=,-]", "_",
+                              os.path.basename(ckpt_path)) + ".state"
+                self._save_state(os.path.join(ckp_root, name), epoch_idx,
+                                 cur_step)
 
             if (epoch_idx + 1) % self.eval_step == 0:
                 t_eval = time.time()
@@ -192,6 +294,10 @@ class Trainer:
                 if update_flag:
                     self.best_valid_result = valid_result
                     best_state = self._host_snapshot()
+                    if saved:
+                        os.makedirs(ckp_root, exist_ok=True)
+                        ckpt.save_best(best_state, ckpt_path)
+                        self.logger.info(f"Saving current best: {ckpt_path}")
                 if stop_flag:
                     self.logger.info(
                         f"+++++Finished training, best eval result in epoch "
@@ -208,6 +314,32 @@ class Trainer:
         return {k: v.detach().to("cpu", copy=True)
                 for k, v in self.model.state_dict().items()}
 
+    def _save_state(self, path, epoch, cur_step):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        ckpt.save_state(
+            path, self.model.state_dict(), self.optimizer.state_dict(),
+            {"scheduler": self.scheduler.state_dict(),
+             "n_updates": self.n_updates},
+            self.generator.get_state(), epoch, self.best_valid_score,
+            cur_step, self.train_loss_dict)
+
+    def _resume(self, path):
+        """Load a `save_state` file into the model, optimizer, lr schedule
+        and generator; returns (first epoch to run, cur_step). As in the JAX
+        package, the best parameters start as the resumed ones and the best
+        valid result as None."""
+        state = ckpt.load_state(path)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["schedule"]["scheduler"])
+        self.n_updates = state["schedule"]["n_updates"]
+        self.generator.set_state(state["generator"])
+        self.best_valid_score = state["best_valid_score"]
+        self.train_loss_dict.update(state["train_loss_dict"])
+        start_epoch = state["epoch"] + 1
+        self.logger.info(f"resumed from {path} at epoch {start_epoch}")
+        return start_epoch, state["cur_step"]
+
     # ------------------------------------------------------------------ eval
     @torch.no_grad()
     def _valid(self, eval_set, is_test=False):
@@ -216,23 +348,178 @@ class Trainer:
         if self.config["eval_by_user"]:
             return self._valid_by_user(eval_set)
         if self.config["full_sort"]:
-            raise NotImplementedError(
-                "full_sort eval is not ported yet (ROADMAP: evaluation "
-                "breadth, TopKEvaluator)")
-        raise NotImplementedError(
-            "sampled-rank eval is not ported yet (ROADMAP: evaluation "
-            "breadth, sample_rank_metrics)")
+            return self._valid_full_sort(is_test)
+        return self._valid_sample(is_test)
+
+    def _eval_batch(self):
+        """The user block of by-user, sampled and study evaluation:
+        `eval_batch_size`, capped by the model's `eval_batch_cap`."""
+        cap = getattr(self.model, "eval_batch_cap", None)
+        return min(self.eval_batch_size, cap) if cap else self.eval_batch_size
+
+    def _score_fn(self):
+        """score_from_cache bound to a fresh eval_cache (the graph
+        propagation, once per evaluation)."""
+        return functools.partial(self.model.score_from_cache,
+                                 self.model.eval_cache())
 
     def _valid_by_user(self, eval_set):
+        return evaluate_by_user(self._score_fn(), eval_set,
+                                self.neg_sample_num,
+                                batch_size=self._eval_batch(),
+                                device=self.model.device)
+
+    @torch.no_grad()
+    def _valid_full_sort(self, is_test, idx=0):
+        """Full-catalog ranking -> TopKEvaluator metrics (trainer.py:646-694;
+        reference trainer.py:476-503): every user on the test split, the
+        valid users otherwise, in blocks of min(eval_batch_size, 64). The
+        score is `valid_metric` lower-cased (`ndcg@20`)."""
         model = self.model
-        cache = model.eval_cache()  # graph propagation once per eval
-        bs = self.eval_batch_size
-        cap = getattr(model, "eval_batch_cap", None)
-        if cap:
-            bs = min(bs, cap)
-        return evaluate_by_user(
-            functools.partial(model.score_from_cache, cache), eval_set,
-            self.neg_sample_num, batch_size=bs, device=model.device)
+        ds = model.dataset
+        if is_test:
+            users = list(range(ds.num_users))
+            pos_items = ds.testRatings
+        else:
+            users = ds.valid_users
+            pos_items = ds.validRatings
+        pos_len = [len(p) for p in pos_items]
+
+        evaluator = TopKEvaluator(self.config)
+        cache = model.eval_cache()
+        topk_index = full_sort_topk(
+            functools.partial(model.score_items, cache), users, ds.num_items,
+            max(evaluator.topk), user_batch=min(self.eval_batch_size, 64),
+            device=model.device)
+        result = evaluator.evaluate(topk_index.numpy(),
+                                    (users, pos_items, pos_len),
+                                    is_test=is_test, idx=idx)
+        valid_metric = (self.config["valid_metric"] or "NDCG@20").lower()
+        score = result.get(valid_metric, result.get("ndcg@20", 0.0))
+        return score, result
+
+    def _sample_candidates(self, is_test):
+        """(users [R], candidates [R, K + 1]) of the sampled eval: one row
+        per positive, its user's K negatives then the positive
+        (trainer.py:702-714; reference dataloader.py:174-220)."""
+        ds = self.model.dataset
+        if is_test:
+            per_user = zip(range(ds.num_users), ds.testRatings,
+                           ds.testNegatives)
+        else:
+            per_user = zip(ds.valid_users, ds.validRatings, ds.validNegatives)
+        users, ratings, negatives = zip(*per_user)
+        n_pos = np.array([len(p) for p in ratings])
+        row_user = np.repeat(np.arange(len(users)), n_pos)
+        cand = np.concatenate(
+            [np.stack(negatives).astype(np.int64)[row_user],
+             np.concatenate(ratings).astype(np.int64)[:, None]], axis=1)
+        return np.asarray(users, np.int64)[row_user], cand
+
+    @torch.no_grad()
+    def _valid_sample(self, is_test):
+        """Sampled rank-of-positive eval (trainer.py:696-730; reference
+        trainer.py:298-349): each positive scored among [its user's
+        negatives, itself], in blocks of `_eval_batch()` rows, the last
+        padded with zeros; the metrics on the host (`sample_rank_metrics`).
+        The score is NDCG@20."""
+        users, cand = self._sample_candidates(is_test)
+        score_fn = self._score_fn()
+        bs = self._eval_batch()
+        pad = (-len(users)) % bs
+        dev = self.model.device
+        users_p = torch.from_numpy(np.concatenate(
+            [users, np.zeros(pad, users.dtype)])).to(dev)
+        cand_p = torch.from_numpy(np.concatenate(
+            [cand, np.zeros((pad, cand.shape[1]), cand.dtype)])).to(dev)
+        preds = [score_fn(users_p[s:s + bs], cand_p[s:s + bs])
+                 for s in range(0, len(users_p), bs)]
+        pred_list = torch.cat(preds)[:len(users)].cpu().numpy()
+        result = sample_rank_metrics(pred_list, self.neg_sample_num)
+        return result["NDCG@20"], result
 
     def evaluate(self, eval_set, is_test=False):
         return self._valid(eval_set, is_test)[1]
+
+    # ----------------------------------------------------------- study evals
+    # The reference exposes cold/warm, sense/unsense and per-health-level
+    # by-user evals as trainer methods over dedicated feeders
+    # (trainer.py:631-804; dataloader.py:305-499). Here, as in the JAX
+    # package (trainer.py:742-787), each split is one padded EvalSet through
+    # the by-user evaluator, with its per-user metric arrays and raw scores.
+    @torch.no_grad()
+    def _study_eval(self, users, ratings, negatives):
+        """(metrics, per-user metric arrays, scores [U, C]) of one split."""
+        es = build_eval_set(users, ratings, negatives)
+        _, metrics, per_user, preds = evaluate_by_user(
+            self._score_fn(), es, self.neg_sample_num,
+            batch_size=self._eval_batch(), device=self.model.device,
+            return_per_user=True)
+        return metrics, per_user, preds
+
+    def cold_start_study(self):
+        """Needs the `cold_study` splits (trainer.py:755-763)."""
+        ds = self.model.dataset
+        cold = self._study_eval(ds.cold_users, ds.coldRatings,
+                                ds.coldNegatives)
+        warm = self._study_eval(ds.warm_users, ds.warmRatings,
+                                ds.warmNegatives)
+        return {"cold": cold[0], "warm": warm[0],
+                "cold_predictions": cold[2], "warm_predictions": warm[2]}
+
+    def sense_study(self):
+        """Needs the `sense_study` splits (trainer.py:765-774)."""
+        ds = self.model.dataset
+        sense = self._study_eval(ds.sense_users, ds.senseRatings,
+                                 ds.senseNegatives)
+        unsense = self._study_eval(ds.unsense_users, ds.unsenseRatings,
+                                   ds.unsenseNegatives)
+        return {"sense": sense[0], "unsense": unsense[0],
+                "sense_predictions": sense[2],
+                "unsense_predictions": unsense[2]}
+
+    def health_level_study(self, n_levels=6):
+        """Needs the `health_level_study` splits (trainer.py:776-787); a
+        level without users is left out."""
+        ds = self.model.dataset
+        out = {}
+        for hl in range(n_levels):
+            if not len(ds.healthUsers[hl]):
+                continue
+            metrics, _, _ = self._study_eval(
+                ds.healthUsers[hl], ds.healthRatings[hl],
+                ds.healthNegatives[hl])
+            out[f"health_{hl}"] = metrics
+        return out
+
+    def plot_train_loss(self, show=False, path=None):
+        """Epoch-loss curve (trainer.py:789-806; reference
+        trainer.py:505-523); matplotlib is imported only here."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        epochs = sorted(self.train_loss_dict)
+        plt.figure()
+        plt.plot(epochs, [self.train_loss_dict[e] for e in epochs])
+        plt.xticks(epochs)
+        plt.xlabel("Epoch")
+        plt.ylabel("Loss")
+        if path:
+            plt.savefig(path)
+        if show:
+            plt.show()
+        plt.close()
+
+    # ------------------------------------------------------------ checkpoint
+    @staticmethod
+    def load_checkpoint(path):
+        """The best-on-valid state_dict `fit(saved=True)` wrote, on the
+        host, for `model.load_state_dict`."""
+        return ckpt.load_best(path)
+
+
+def get_trainer():
+    """Registry hook (reference: utils.py:43-44)."""
+    return Trainer

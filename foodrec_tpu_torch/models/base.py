@@ -45,6 +45,7 @@ class GeneralRecommender(nn.Module):
         super().__init__()
         self.config = config
         self.device = torch.device(config["device"])
+        self.dataset = dataset  # the full-sort, sampled and study evals read it
         self.dd = dataset.device_data
         self.n_users = dataset.n_users
         self.n_items = dataset.n_items

@@ -212,7 +212,10 @@ class SpmmCSR(torch.autograd.Function):
 def select_impl(adj, impl, device):
     """Resolve impl="auto" (foodrec_tpu/ops/spmm.py:238-253): ELL when its
     padding is small, else the CUDA kernel on the card and `segment` on the
-    CPU."""
+    CPU. "pallas", the JAX package's name for its SpMM kernel, is the
+    kernel here, so a config of the JAX package carries over."""
+    if impl == "pallas":
+        impl = "kernel"
     if impl == "auto":
         ell_ok = (adj.has_ell
                   and adj.n_nodes * adj.max_degree <= 1.5 * max(adj.nnz, 1))

@@ -1,6 +1,24 @@
 # coding: utf-8
-"""Cross-cutting utilities (copy of `foodrec_tpu/utils/misc.py:44-70`;
+"""Cross-cutting utilities (copy of `foodrec_tpu/utils/misc.py:32-68`;
 reference FoodRec/utils/utils.py)."""
+
+import datetime
+import random
+
+import numpy as np
+
+
+def get_local_time():
+    return datetime.datetime.now().strftime("%b-%d-%Y-%H-%M-%S")
+
+
+def init_seed(seed):
+    """Seed the host RNGs (`random`, numpy) as the JAX package does. Device
+    randomness comes from explicit `torch.Generator`s seeded from
+    config['seed'] (the model's init, the trainer's draws), never from
+    torch's global generator."""
+    random.seed(seed)
+    np.random.seed(seed)
 
 
 def early_stopping(value, best, cur_step, max_step, bigger=True):

@@ -88,8 +88,10 @@ def test_auto_rule(rng):
     assert select_impl(loose, "auto", "cuda") == "kernel"
     assert select_impl(ring, "auto", "cuda") == "ell"
     assert select_impl(hub, "ell", "cpu") == "segment"  # no ELL table
+    # the JAX package's name for its SpMM kernel is the kernel here
+    assert select_impl(ring, "pallas", "cpu") == "kernel"
     with pytest.raises(ValueError):
-        select_impl(ring, "pallas", "cpu")
+        select_impl(ring, "mystery", "cpu")
 
 
 def test_unported_options_raise(rng):
