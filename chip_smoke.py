@@ -58,6 +58,15 @@ clusters), with random weights from seed 999:
      cold, sense and health-level studies; a 2-epoch fit stopped after
      epoch 0 (save_state_every: 1) and resumed, against the run that was
      not stopped
+  9. the training and data options, through the kernel: CIKM_Model with
+     the scalar health level, health-stratified negatives and the padded
+     final batch for one epoch (the negatives' invariants asserted);
+     row-sparse Adam against the dense update on the same 20 batches (loss
+     parts within 1e-5, parameters and moments after, a 20-step profile
+     each way, one row-sparse epoch); 20 steps of sgd, adagrad and rmsprop
+     through the kernel against `segment`; one epoch each of CIKM_Model and
+     BM3 with frozen modality tables; LightGCN's fit with
+     profile_trace_dir, whose trace must name the kernel
 
 Any failed check raises and the script exits non-zero. The line before the
 last is the kernels' JSON record; the last line is
@@ -563,8 +572,8 @@ def phase_serving(torch, kernels, spmm):
 def profile_breakdown(torch, fn, tag, what, top=8):
     """Where one call of fn() spends device time: torch.profiler's device
     time by kernel (memcpy and memset included), and the device's busy share
-    of the wall time. Returns (wall us, busy us), or None when the profiler
-    saw no device time."""
+    of the wall time. Returns (wall us, busy us, [(device us, count, name)]
+    by device time), or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -574,10 +583,14 @@ def profile_breakdown(torch, fn, tag, what, top=8):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # device kernels, memcpy and memset; not the ranges that user
+    # annotations such as Optimizer.step record on the device's timeline
     ops = sorted(((e.self_device_time_total, e.count, e.key)
                   for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0), reverse=True)
+                  and e.self_device_time_total > 0
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith("Optimizer.")), reverse=True)
     busy_us = sum(t for t, _, _ in ops)
     if not ops:
         log(f"[{tag}] profile: the profiler saw no device time "
@@ -588,7 +601,7 @@ def profile_breakdown(torch, fn, tag, what, top=8):
     for t, count, key in ops[:top]:
         log(f"[{tag}] profile:   {t:10.1f} us  {t / busy_us:.3f}  "
             f"x{count:<5d} {key[:80]}")
-    return wall_us, busy_us
+    return wall_us, busy_us, ops
 
 
 def bound_of(n, nnz, d):
@@ -907,7 +920,7 @@ def phase_train(torch, kernels, spmm, served):
                 peak_gb=peak_gb, grad_err=max(errs),
                 model_grad_err=model_grad_err,
                 busy_share=None if prof is None else prof[1] / prof[0],
-                metrics=metrics)
+                busy_us=None if prof is None else prof[1], metrics=metrics)
 
 
 def phase_backward_times(torch, spmm, graphs):
@@ -1252,6 +1265,7 @@ def phase_zoo_model(torch, kernels, spmm, name):
                 peak_gb=peak_gb, eval_s=eval_s, metrics=metrics,
                 topk_s=topk_s, topk_peak_gb=topk_gb,
                 busy_share=None if prof is None else prof[1] / prof[0],
+                busy_us=None if prof is None else prof[1],
                 grad_err=max([model_grad_err] + [g["grad_err"]
                                                  for g in graphs.values()]))
 
@@ -1727,6 +1741,396 @@ def phase_driver(torch, kernels):
     return out
 
 
+# phase 9: the training and data options, through the kernel
+OPTION_STEPS = 20     # steps of the row-sparse and learner comparisons
+OPTION_TOL = 1e-5     # their loss parts, relative, at every step
+HEALTH_FLAGS = {"use_health_level_multi_hot": False, "use_health_level": True,
+                "load_RecipeHealth_graph": True, "health_neg_sample": True,
+                "exact_final_batch": False}
+TRACE_ROOT = os.path.join(ROOT, "build", "trace")
+
+
+def option_config(name, **extra):
+    """A Foodcom-scale config of `name` through the kernel, weights seed
+    SEED, with `extra` set."""
+    from foodrec_tpu_torch.config import Config
+    from foodrec_tpu_torch.data.dataset import derive_data_paths
+
+    cfg = Config(name, DATASET, {
+        "data_path": DATA_ROOT + "/", "seed": SEED,
+        "neg_sample_num": FOODCOM_SCALE["neg_num"], "spmm_impl": "kernel",
+        **ZOO_OVERRIDES.get(name, {}), **extra})
+    derive_data_paths(cfg, DATASET)
+    return cfg
+
+
+def option_model(torch, cfg, data):
+    from foodrec_tpu_torch.models import get_model
+
+    return get_model(cfg["model"])(
+        cfg, data, generator=torch.Generator().manual_seed(SEED))
+
+
+def counted_epoch(torch, kernels, trainer, tag, what):
+    """One train_epoch with the launch counts set to 0 just before it and
+    read just after, its batches and loss parts recorded; asserts the
+    model's kernel hops a step each way and finite loss parts. Returns
+    (wall s, launches, batches, [n_steps, n_parts] loss parts, peak
+    GiB)."""
+    model = trainer.model
+    hops = (model.n_layers + model.ui_layers
+            if type(model).__name__ == "CIKM_Model"
+            else sum(zoo_hops(model).values()))
+    seen, step_parts = [], []
+    train_steps = trainer.train_steps
+
+    def recording(batches):
+        total = None
+        for batch in batches:
+            seen.append(batch)
+            step_parts.append(train_steps([batch]))
+            total = step_parts[-1] if total is None else total + step_parts[-1]
+        return total
+
+    trainer.train_steps = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    trainer.train_epoch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    del trainer.train_steps
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = len(seen)
+    want = {"spmm_csr": hops * n, "spmm_csr_bwd": hops * n}
+    log(f"[{tag}] {what}: steps={n} wall {wall:.3f} s, {n / wall:.1f} "
+        f"steps/s, peak device memory {peak_gb:.2f} GiB, launches "
+        f"{launches}")
+    if n != trainer.n_batches or launches != want:
+        raise AssertionError(f"{tag}: {n} steps (expected "
+                             f"{trainer.n_batches}), launches {launches} "
+                             f"(expected {want})")
+    parts = torch.stack(step_parts).cpu().numpy()
+    if not np.isfinite(parts).all():
+        raise AssertionError(f"{tag}: a loss part is not finite")
+    return wall, launches, seen, parts, peak_gb
+
+
+def options_health(torch, kernels):
+    """(a) CIKM_Model with the scalar health level, health-stratified
+    negatives and the padded final batch: one full epoch, every batch at
+    512 rows, the tail's wrapped rows weighted 0, and the health
+    negatives' invariants: an item of the positive's health level for a
+    user of the sample set, of the train list for the others, outside the
+    user's positives."""
+    from foodrec_tpu_torch.data.dataset import FoodData
+    from foodrec_tpu_torch.data.device import DeviceData
+    from foodrec_tpu_torch.data.sampling import is_excluded
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    tag = "9 health"
+    cfg = option_config("CIKM_Model", **HEALTH_FLAGS)
+    t0 = time.perf_counter()
+    data = FoodData(cfg)
+    dd = data.device_data = DeviceData.from_food_data(data)
+    model = option_model(torch, cfg, data)
+    trainer = Trainer(cfg, model)
+    log(f"[{tag}] load {time.perf_counter() - t0:.1f} s; health head width "
+        f"{model.health_mlp['l2']['w'].shape[1]} (num_health_level "
+        f"{data.num_health_level}), buckets {dd.health_bucket_items.shape}, "
+        f"{int(dd.health_in_sample.sum())} users in the sample set, "
+        f"{len(dd.train_items_arr)} train items")
+    if model.health_mlp["l2"]["w"].shape[1] != data.num_health_level:
+        raise AssertionError("health head width")
+    wall, launches, seen, parts, peak = counted_epoch(
+        torch, kernels, trainer, tag, "padded epoch with health negatives")
+    bs = trainer.train_batch_size
+    weights = torch.cat([b[3]["weight"] for b in seen])
+    n_pad = len(weights) - trainer.n_train
+    if {len(b[0]) for b in seen} != {bs} or int(weights.sum()) != \
+            trainer.n_train or int((seen[-1][3]["weight"] == 0).sum()) != n_pad:
+        raise AssertionError(f"{tag}: padded batches or weights")
+    u = torch.cat([b[0] for b in seen])
+    pos = torch.cat([b[1] for b in seen])
+    hn = torch.cat([b[3]["health_neg"] for b in seen])
+    level, buckets, in_sample, train_items = trainer._health
+    lens = (buckets >= 0).sum(1)
+    from_bucket = in_sample[u] & (lens[level[pos].long()] > 0)
+    in_train = torch.zeros(dd.num_items, dtype=torch.bool, device="cuda")
+    in_train[train_items.long()] = True
+    same_level = level[hn] == level[pos]
+    bad_bucket = int((from_bucket & ~same_level).sum())
+    bad_uniform = int((~from_bucket & ~in_train[hn]).sum())
+    excluded = int(is_excluded(trainer._excl, u, hn).sum())
+    log(f"[{tag}] {len(seen)} steps of {bs} rows, the last with {n_pad} "
+        f"zero-weight rows; health negatives: {int(from_bucket.sum())} from "
+        f"the positive's bucket ({bad_bucket} of another level), "
+        f"{int((~from_bucket).sum())} uniform over the train items "
+        f"({bad_uniform} outside them), {excluded} among the user's "
+        f"positives; loss parts per step, epoch mean "
+        f"{parts.mean(0).tolist()}")
+    if bad_bucket or bad_uniform or excluded:
+        raise AssertionError(f"{tag}: health negative invariants")
+    return dict(epoch_s=wall, steps=len(seen), steps_per_s=len(seen) / wall,
+                pad_rows=n_pad, peak_gb=peak, launches=launches)
+
+
+def adam_state_diff(torch, ta, tb):
+    """(max |param difference|, max |Adam moment difference|) of two
+    trainers of one model class."""
+    pa = dict(ta.model.named_parameters())
+    pb = dict(tb.model.named_parameters())
+    d_p = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+    d_m = 0.0
+    for k in pa:
+        sa, sb = ta.optimizer.state[pa[k]], tb.optimizer.state[pb[k]]
+        for key in ("exp_avg", "exp_avg_sq"):
+            d_m = max(d_m, float((sa[key] - sb[key]).abs().max()))
+    return d_p, d_m
+
+
+def share(ops, busy_us, pattern):
+    """(device us, count, share of busy) of the profile lines naming
+    `pattern`."""
+    t = sum(o[0] for o in ops if pattern in o[2])
+    c = sum(o[1] for o in ops if pattern in o[2])
+    return t, c, t / busy_us
+
+
+def options_row_sparse(torch, kernels, data):
+    """(b) CIKM_Model as shipped, from one set of weights, on the same 20
+    batches with row_sparse_table_update True and False: every step's loss
+    parts within OPTION_TOL, the parameters and Adam moments after, a
+    20-step profile each way, and one full row-sparse epoch."""
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    tag = "9 row-sparse"
+    trainers = {}
+    for rs in (True, False):
+        cfg = option_config("CIKM_Model", row_sparse_table_update=rs)
+        trainers[rs] = Trainer(cfg, option_model(torch, cfg, data))
+    if not trainers[True].row_sparse_on or trainers[False].row_sparse_on:
+        raise AssertionError(f"{tag}: row_sparse_on")
+    batches = draw_batches(torch, data.device_data, OPTION_STEPS,
+                           trainers[True].train_batch_size, SEED + 9)
+    rows = trainers[True]._row_sparse_rows(batches[0][1], batches[0][2])
+    if sorted(rows) != ["image_embedding", "text_embedding"]:
+        raise AssertionError(f"{tag}: tables {sorted(rows)}")
+    traj = []
+    for batch in batches:
+        ps, pd = (trainers[rs].train_steps([batch]) for rs in (True, False))
+        traj.append(((ps - pd).abs() / pd.abs()).cpu().numpy())
+    worst = np.array(traj).max(axis=0)
+    d_p, d_m = adam_state_diff(torch, trainers[True], trainers[False])
+    log(f"[{tag}] {OPTION_STEPS} steps row-sparse vs dense: worst relative "
+        f"loss-part difference {worst.tolist()}; after them max|param d| "
+        f"{d_p:.3e}, max|Adam moment d| {d_m:.3e} "
+        f"({'bitwise' if d_p == d_m == 0 else 'not bitwise'})")
+    if not (worst <= OPTION_TOL).all():
+        raise AssertionError(f"{tag}: loss parts differ by {worst}")
+    profiles = {}
+    for rs, name in ((False, "dense"), (True, "row-sparse")):
+        prof_batches = draw_batches(torch, data.device_data, PROFILE_STEPS,
+                                    trainers[rs].train_batch_size, SEED + 2)
+        prof = profile_breakdown(
+            torch, lambda: trainers[rs].train_steps(prof_batches), tag,
+            f"{PROFILE_STEPS} {name} steps")
+        if prof is None:
+            profiles[name] = None
+            continue
+        wall, busy, ops = prof
+        idx = share(ops, busy, "indexing_backward_kernel")
+        mta = share(ops, busy, "multi_tensor_apply_kernel")
+        profiles[name] = dict(
+            wall_us=wall, busy_us=busy, busy_share=busy / wall,
+            indexing_backward_share=idx[2],
+            indexing_backward_per_step=idx[1] / PROFILE_STEPS,
+            multi_tensor_adam_share=mta[2])
+        log(f"[{tag}] {name}: busy share {busy / wall:.3f}; "
+            f"indexing_backward_kernel {idx[0]:.0f} us ({idx[2]:.3f} of "
+            f"busy, {idx[1] / PROFILE_STEPS:.1f} a step); multi-tensor Adam "
+            f"kernels {mta[0]:.0f} us ({mta[2]:.3f})")
+    del trainers[False]
+    torch.cuda.empty_cache()
+    trainer = trainers[True]
+    trainer.scheduler.step()
+    wall, launches, _, _, peak = counted_epoch(
+        torch, kernels, trainer, tag, "row-sparse epoch")
+    return dict(worst_rel=worst.tolist(), max_param_diff=d_p,
+                max_moment_diff=d_m, profiles=profiles, epoch_s=wall,
+                peak_gb=peak, launches=launches)
+
+
+def options_learners(torch, kernels, data):
+    """(c) OPTION_STEPS steps of sgd, adagrad and rmsprop on CIKM_Model
+    through the kernel, dropout 0, the kernel path's launches counted. At
+    every step the `segment` path's loss parts at the kernel path's
+    parameters must lie within OPTION_TOL; a second trainer that runs the
+    same batches through `segment` on its own parameters is held to phase
+    6's TRAJECTORY_TOL: two float32 runs of a learner part where the
+    training amplifies rounding."""
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    tag = "9 learners"
+    out = {}
+    batches = draw_batches(torch, data.device_data, OPTION_STEPS, 512,
+                           SEED + 10)
+    for learner in ("sgd", "adagrad", "rmsprop"):
+        cfg = option_config("CIKM_Model", learner=learner)
+        mk = option_model(torch, cfg, data)
+        mk.attn_dropout = 0.0
+        ms, mp = copy.deepcopy(mk), copy.deepcopy(mk)
+        swap_propagators(ms, "segment")
+        swap_propagators(mp, "segment")
+        impls = {m: sorted({p.impl for p in propagators(m).values()})
+                 for m in (mk, ms, mp)}
+        if list(impls.values()) != [["kernel"], ["segment"], ["segment"]]:
+            raise AssertionError(f"{tag}: impls {list(impls.values())}")
+        tk, ts = Trainer(cfg, mk), Trainer(cfg, ms)
+        same, free, parts_k = [], [], []
+        for batch in batches:
+            mp.load_state_dict(mk.state_dict())
+            with torch.no_grad():
+                pp = torch.stack(mp.calculate_loss(*batch))
+            reset_launches(kernels)
+            pk = tk.train_steps([batch])
+            torch.cuda.synchronize()
+            if dict(kernels.launches) != {
+                    "spmm_csr": mk.n_layers + mk.ui_layers,
+                    "spmm_csr_bwd": mk.n_layers + mk.ui_layers}:
+                raise AssertionError(f"{tag}: {learner} launches "
+                                     f"{kernels.launches}")
+            ps = ts.train_steps([batch])
+            same.append(((pk - pp).abs() / pp.abs()).cpu().numpy())
+            free.append(((pk - ps).abs() / ps.abs()).cpu().numpy())
+            parts_k.append(pk.cpu().numpy())
+        same, free = np.array(same).max(axis=0), np.array(free).max(axis=0)
+        hops = mk.n_layers + mk.ui_layers
+        launches = {"spmm_csr": hops * OPTION_STEPS,
+                    "spmm_csr_bwd": hops * OPTION_STEPS}
+        log(f"[{tag}] {learner} ({type(tk.optimizer).__name__}): "
+            f"{OPTION_STEPS} steps through the kernel, {launches}; segment "
+            f"at the same parameters, worst relative loss-part difference "
+            f"{same.tolist()}; segment on its own parameters "
+            f"{free.tolist()}; kernel loss parts first / last step "
+            f"{parts_k[0].tolist()} / {parts_k[-1].tolist()}")
+        if not (same <= OPTION_TOL).all():
+            raise AssertionError(f"{tag}: {learner} loss parts at the same "
+                                 f"parameters differ by {same}")
+        if not (free <= TRAJECTORY_TOL).all():
+            raise AssertionError(f"{tag}: {learner} trajectories differ by "
+                                 f"{free}, bars {TRAJECTORY_TOL}")
+        out[learner] = dict(same_params_worst_rel=same.tolist(),
+                            trajectory_worst_rel=free.tolist(),
+                            launches=launches)
+        del mk, ms, mp, tk, ts
+        torch.cuda.empty_cache()
+    return out
+
+
+def options_frozen(torch, kernels, data, trainable):
+    """(d) One full epoch each of CIKM_Model and BM3 with
+    freeze_modality_tables: the tables out of the optimizer (n_items x
+    (2048 + 512) fewer parameters), beside the trainable epochs of phases
+    6 and 7 of this run (`trainable`: {name: (epoch s, peak GiB, device
+    busy us of their 20-step profile)}), with a profile of the same 20
+    steps."""
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    tag = "9 frozen"
+    out = {}
+    for name in ("CIKM_Model", "BM3"):
+        counts = {}
+        for frozen in (False, True):
+            cfg = option_config(name, freeze_modality_tables=frozen)
+            model = option_model(torch, cfg, data)
+            counts[frozen] = sum(p.numel() for g in Trainer(
+                cfg, model).optimizer.param_groups for p in g["params"])
+            if not frozen:
+                del model
+                torch.cuda.empty_cache()
+        dd = data.device_data
+        fewer = counts[False] - counts[True]
+        want = dd.n_items * (dd.img.shape[1] + dd.txt.shape[1])
+        trainer = Trainer(cfg, model)
+        wall, launches, _, _, peak = counted_epoch(
+            torch, kernels, trainer, tag, f"{name} frozen epoch")
+        trainer.scheduler.step()
+        batches = draw_batches(torch, dd, PROFILE_STEPS,
+                               trainer.train_batch_size, SEED + 2)
+        prof = profile_breakdown(
+            torch, lambda: trainer.train_steps(batches), tag,
+            f"{PROFILE_STEPS} frozen {name} steps", top=5)
+        busy = None if prof is None else prof[1]
+        log(f"[{tag}] {name}: optimizer parameters {counts[True]} "
+            f"({fewer} fewer than trainable, expected {want}); epoch "
+            f"{wall:.3f} s, peak {peak:.2f} GiB, device busy {busy} us "
+            f"over {PROFILE_STEPS} steps, against the trainable epoch's "
+            f"{trainable[name][0]:.3f} s, {trainable[name][1]:.2f} GiB and "
+            f"{trainable[name][2]} us in this run")
+        if fewer != want:
+            raise AssertionError(f"{tag}: {name} {fewer} parameters fewer")
+        out[name] = dict(epoch_s=wall, trainable_epoch_s=trainable[name][0],
+                         peak_gb=peak, trainable_peak_gb=trainable[name][1],
+                         busy_us_20_steps=busy,
+                         trainable_busy_us_20_steps=trainable[name][2],
+                         optimizer_params=counts[True],
+                         fewer_params=fewer, launches=launches)
+        del model, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def options_trace(torch, kernels, data):
+    """(e) fit of LightGCN for 2 epochs with profile_trace_dir: epoch 1
+    under torch.profiler, its trace written, naming the SpMM kernel."""
+    import shutil
+
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    tag = "9 trace"
+    shutil.rmtree(TRACE_ROOT, ignore_errors=True)
+    cfg = option_config("LightGCN", epochs=2, eval_step=2,
+                        profile_trace_dir=TRACE_ROOT)
+    model = option_model(torch, cfg, data)
+    trainer = Trainer(cfg, model)
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    trainer.fit(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    path = os.path.join(TRACE_ROOT, "epoch_1.pt.trace.json")
+    if not os.path.isfile(path):
+        raise AssertionError(f"{tag}: no trace at {path}")
+    with open(path) as f:
+        text = f.read()
+    n_items = text.count("spmm_csr_items")
+    log(f"[{tag}] fit 2 epochs {wall:.3f} s, launches {launches}; trace "
+        f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, names spmm_csr_items "
+        f"{n_items} times")
+    if not n_items:
+        raise AssertionError(f"{tag}: the trace does not name the kernel")
+    shutil.rmtree(TRACE_ROOT, ignore_errors=True)
+    return dict(fit_s=wall, launches=launches, trace_mentions=n_items)
+
+
+def phase_options(torch, kernels, data, trainable):
+    """Phase 9: the training and data options on the Foodcom-scale
+    synthetic through the kernel; `data` is phase 4's CIKM_Model FoodData."""
+    out = {"health": options_health(torch, kernels)}
+    torch.cuda.empty_cache()
+    out["row_sparse"] = options_row_sparse(torch, kernels, data)
+    torch.cuda.empty_cache()
+    out["learners"] = options_learners(torch, kernels, data)
+    out["frozen"] = options_frozen(torch, kernels, data, trainable)
+    out["trace"] = options_trace(torch, kernels, data)
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entry(per_graph, per_key, **fields):
     """A kernels-JSON entry: times summed over the launches of one `per` on
     the main path's graphs; the power-law graphs (main_path False) stand
@@ -1783,6 +2187,12 @@ def main():
     per_graph.update(phase_times(torch, spmm, zoo_graphs))
     bwd_graph.update(phase_backward_times(torch, spmm, zoo_graphs))
     driver = phase_driver(torch, _kernels)
+    torch.cuda.empty_cache()
+    options = phase_options(torch, _kernels, served["data"], {
+        "CIKM_Model": (trained["epoch_s"], trained["peak_gb"],
+                       trained["busy_us"]),
+        "BM3": (zoo["BM3"]["epoch_s"], zoo["BM3"]["peak_gb"],
+                zoo["BM3"]["busy_us"])})
 
     fwd_by_path = {"serve": served["launches"],
                    "train_epoch": trained["launches"]["spmm_csr"]}
@@ -1797,6 +2207,17 @@ def main():
         bwd_by_path[path] = launches["spmm_csr_bwd"]
     fwd_by_path["full_sort test"] = driver["full_sort"]["launches"]
     fwd_by_path["sample test"] = driver["sample"]["launches"]
+    option_paths = [
+        ("health padded train_epoch", options["health"]["launches"]),
+        ("row_sparse train_epoch", options["row_sparse"]["launches"]),
+        *((f"{name} {OPTION_STEPS} steps", o["launches"])
+          for name, o in options["learners"].items()),
+        *((f"frozen {name} train_epoch", o["launches"])
+          for name, o in options["frozen"].items()),
+        ("LightGCN fit with trace", options["trace"]["launches"])]
+    for path, launches in option_paths:
+        fwd_by_path[path] = launches["spmm_csr"]
+        bwd_by_path[path] = launches["spmm_csr_bwd"]
     models = {name: dict(
         kernel_hops_per_forward=z["hops"], epoch_s=z["epoch_s"],
         epoch_steps=z["n_steps"], steps_per_s=z["n_steps"] / z["epoch_s"],
@@ -1816,7 +2237,8 @@ def main():
             per="one CIKM_Model eval_cache: 2 ri_prop hops + 1 ui_prop hop",
             evaluate_test_s=served["eval_test_s"], timing_floor=floor,
             models=models, lightgcn_gate=gate,
-            driver={k: v for k, v in driver.items() if k != "resume"}),
+            driver={k: v for k, v in driver.items() if k != "resume"},
+            options=options),
         kernel_entry(
             bwd_graph, "launches_per_train_step", name="spmm_csr_bwd",
             replaces="foodrec_tpu/ops/spmm.py:129 (custom VJP :263-273)",

@@ -12,6 +12,8 @@
     additive attention mask (module.py:48-194), SCHGN's masked-ingredient
     encoder.
   * `mlp_2layer_*`: Linear, ReLU, Linear.
+  * `mlp_layers_*`: the reference's MLPLayers stack of [Dropout, Linear,
+    activation] (no shipped model reads it).
 
 Parameters are dicts of tensors in the JAX package's layout (linear weights
 [in, out]); the model wraps them as `nn.ParameterDict`s. Dropout draws from
@@ -247,3 +249,50 @@ def mlp_2layer_params(generator, d_in, d_hidden, d_out):
 
 def mlp_2layer_apply(p, x):
     return linear_apply(p["l2"], torch.relu(linear_apply(p["l1"], x)))
+
+
+# ---------------------------------------------------------------------------
+# generic MLP stack (reference: FoodRec/common/module.py:197-263)
+# ---------------------------------------------------------------------------
+
+MLP_ACT = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "leakyrelu": F.leaky_relu,
+    "none": lambda v: v,
+}
+
+
+def mlp_layers_params(generator, layers, init_method=None):
+    """[Dropout, Linear, ReLU] per consecutive (in, out) pair of `layers`:
+    a list of {'w': [in, out], 'b': [out]}. `init_method='norm'` draws
+    N(0, 0.01) weights and zero biases (module.py:246-252); the default is
+    torch's Linear init, U(-1/sqrt(in), 1/sqrt(in)) for both."""
+    params = []
+    for d_in, d_out in zip(layers[:-1], layers[1:]):
+        if init_method == "norm":
+            w = 0.01 * torch.randn((d_out, d_in), generator=generator)
+            b = torch.zeros(d_out)
+        else:
+            bound = 1.0 / math.sqrt(d_in)
+            w = torch.empty(d_out, d_in).uniform_(-bound, bound,
+                                                  generator=generator)
+            b = torch.empty(d_out).uniform_(-bound, bound,
+                                            generator=generator)
+        params.append({"w": w.T.contiguous(), "b": b})
+    return params
+
+
+def mlp_layers_apply(params, x, drop_rate=0.0, activation="relu",
+                     last_activation=True, generator=None):
+    """The stack on x: per layer dropout (drawn from `generator`), the
+    linear map and the activation, which the last layer skips when
+    `last_activation` is False."""
+    act = MLP_ACT[activation or "none"]
+    for i, p in enumerate(params):
+        x = dropout(x, drop_rate, generator)
+        x = linear_apply(p, x)
+        if last_activation or i < len(params) - 1:
+            x = act(x)
+    return x

@@ -19,21 +19,27 @@ native extension):
   ri_graph.txt                      recipe-ingredient int pairs (graph_edge/,
                                     or the dataset root when small_ingre)
   graph_edge/rc_graph.txt           recipe-calorie-level int pairs (SCHGN)
+  graph_edge/rh_graph.txt           recipe-health-level int pairs; the levels'
+                                    count sizes CIKM_Model's scalar health head
+  graph_edge/rr_graph.txt           recipe-recipe int pairs
+  graph_edge/rr_{co,ing,health}_graph.txt
+                                    recipe-recipe triples, read as floats
   cluster/{image,text}_cluster_edge.txt
                                     (item, k-means cluster) pairs, read as
                                     floats (PRICAI_ModelX)
   recipe_health_level_multi_hot_dict.pkl
+  recipe_health_level_dict.pkl      item -> scalar health level
   recipe_cal_level_dict.pkl         item -> calorie level (SCHGN)
+  health_sample_dict.pkl            (neg_sample_set, health_0..health_5): the
+                                    health-stratified negatives' buckets
 
   cold_start/data.{cold,warm}.{rating,negative}, sense_user/data.{sense,
   unsense}.{rating,negative}, health_level/data_health{0..5}.{rating,
   negative}                         the study splits, under cold_study,
                                     sense_study and health_level_study
 
-Not ported yet (ROADMAP.md), and raising NotImplementedError when a config
-sets them: the recipe-recipe and recipe-health graphs and the scalar health
-level dict (`_UNPORTED_FLAGS`). The health-stratified sampling buckets are
-refused by the Trainer, which reads `health_neg_sample`.
+Every flag of the JAX package's GraphData is read; what is not ported yet
+is the offline pipeline that writes these files (ROADMAP.md).
 """
 
 import os
@@ -85,12 +91,10 @@ def _read_negative_file(path):
     return negatives
 
 
-# flags of the JAX package's GraphData whose files the port does not read
-# (foodrec_tpu/data/dataset.py:252-285)
-_UNPORTED_FLAGS = ("load_RecipeRecipe_graph", "load_RecipeHealth_graph",
-                   "use_health_level", "load_RecipeRecipeCo_graph",
-                   "load_RecipeRecipeIng_graph",
-                   "load_RecipeRecipeHealth_graph")
+def _load_pickle(path):
+    # a pickle this dataset's own generator or preprocessing wrote
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def _read_study_split(path):
@@ -106,11 +110,6 @@ class FoodData:
     and the studies read (reference: dataset.py:11-370)."""
 
     def __init__(self, config):
-        for flag in _UNPORTED_FLAGS:
-            if config[flag]:
-                raise NotImplementedError(
-                    f"{flag} is not ported yet (ROADMAP.md); no ported model "
-                    "reads its file")
         self.args_config = config
         interaction_path = config["interaction_data_path"]
         ingre_path = config["ingre_data_path"]
@@ -126,6 +125,9 @@ class FoodData:
         keep = tr_r > 0
         self._train_u = tr_u[keep]
         self._train_i = tr_i[keep]
+        # the distinct train items in the JAX package's set order
+        # (dataset.py:258-270): the health sampler's uniform fallback
+        self.train_item_list = list(set(self._train_i.tolist()))
 
         self.testRatings, _ = _group_by_consecutive_user(te_u, te_i)
         self.testNegatives = _read_negative_file(
@@ -174,9 +176,7 @@ class FoodData:
             coo_path = config["interaction_data_path"] + "inter_coo_matrix.pkl"
         else:
             coo_path = config["graph_data_path"] + "inter_coo_matrix.pkl"
-        # a pickle this dataset's own generator or preprocessing wrote
-        with open(coo_path, "rb") as f:
-            self.train_coo_matrix = pickle.load(f).astype(np.float32)
+        self.train_coo_matrix = _load_pickle(coo_path).astype(np.float32)
 
         # the study splits (dataset.py:155-181)
         if config["cold_study"]:
@@ -204,6 +204,8 @@ class FoodData:
         graph_path = config["graph_data_path"]
         if config["load_UserRecipe_graph"]:
             self.uRecipe_triples = _read_pairs(graph_path + "ur_graph.txt")
+        if config["load_RecipeRecipe_graph"]:
+            self.rRecipe_triples = _read_pairs(graph_path + "rr_graph.txt")
         if config["load_RecipeIngre_graph"]:
             ri_dir = ingre_path if config["small_ingre"] else graph_path
             self.rIngre_triples = _read_pairs(ri_dir + "ri_graph.txt")
@@ -213,19 +215,36 @@ class FoodData:
         if config["load_RecipeCalories_graph"]:
             self.rCalories_triples = _read_pairs(graph_path + "rc_graph.txt")
             self.num_calories_level = int(self.rCalories_triples[:, 1].max()) + 1
+        self.num_health_level = 0
+        if config["load_RecipeHealth_graph"]:
+            self.rHealth_triples = _read_pairs(graph_path + "rh_graph.txt")
+            self.num_health_level = int(self.rHealth_triples[:, 1].max()) + 1
+        if config["use_cal_level"]:
+            self.cal_level = _load_pickle(graph_path + "recipe_cal_level_dict.pkl")
+        if config["use_health_level"]:
+            self.health_level = _load_pickle(
+                graph_path + "recipe_health_level_dict.pkl")
+        if config["use_health_level_multi_hot"]:
+            self.health_level_multi_hot = _load_pickle(
+                graph_path + "recipe_health_level_multi_hot_dict.pkl")
+        # floats, as the JAX package reads them with np.loadtxt
+        for name, flag in (("rr_co", "load_RecipeRecipeCo_graph"),
+                           ("rr_ing", "load_RecipeRecipeIng_graph"),
+                           ("rr_health", "load_RecipeRecipeHealth_graph")):
+            if config[flag]:
+                setattr(self, f"{name}_triples",
+                        np.loadtxt(f"{graph_path}{name}_graph.txt"))
+        if config["health_neg_sample"]:
+            # the health-stratified negatives' buckets (dataloader.py:22-25)
+            (self.neg_sample_set, self.health_0, self.health_1,
+             self.health_2, self.health_3, self.health_4,
+             self.health_5) = _load_pickle(graph_path + "health_sample_dict.pkl")
         # floats, as the JAX package reads them; the model casts the ids
         for modality, flag in (("image", "load_ImageCluster_graph"),
                                ("text", "load_TextCluster_graph")):
             if config[flag]:
                 setattr(self, f"{modality}_cluster_triples", np.loadtxt(
                     f"{interaction_path}cluster/{modality}_cluster_edge.txt"))
-        if config["use_health_level_multi_hot"]:
-            with open(graph_path + "recipe_health_level_multi_hot_dict.pkl",
-                      "rb") as f:
-                self.health_level_multi_hot = pickle.load(f)
-        if config["use_cal_level"]:
-            with open(graph_path + "recipe_cal_level_dict.pkl", "rb") as f:
-                self.cal_level = pickle.load(f)
 
     @staticmethod
     def _load_ingredient_num(path):

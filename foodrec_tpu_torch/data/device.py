@@ -6,14 +6,19 @@
     for the on-device negative sampler (replaces the reference's rejection
     test, dataloader.py:145-151)
   * the item side tables (image, text, ingredient codes and counts, health
-    multi-hot, calorie level) that the model gathers per batch
+    multi-hot, calorie level, scalar health level) that the model gathers
+    per batch
+  * the health-stratified negatives' buckets: the items of each health
+    level, padded with -1, the users who draw from them and the train item
+    list the others draw from (dataloader.py:22-25, 87-114)
   * eval candidate sets as one padded [U, C] block per split (replaces the
     reference's per-user generator EvalByUserDataloader,
     dataloader.py:228-302)
 
 Built with vectorized numpy instead of the JAX package's native extension.
-The health-stratified sampling buckets and the scalar health level are not
-ported yet (ROADMAP.md).
+The port's FoodData loads a file only under its config flag, so an array
+is built here where its dataset attribute exists, as the JAX package builds
+it where the flag is set.
 """
 
 import dataclasses
@@ -123,7 +128,13 @@ class DeviceData:
     eval_valid: EvalSet
     eval_test: EvalSet
 
-    cal_level: Optional[np.ndarray] = None  # int32 [n_items], or None
+    cal_level: Optional[np.ndarray] = None     # int32 [n_items], or None
+    health_level: Optional[np.ndarray] = None  # int32 [n_items], or None
+
+    # health-stratified second negatives (dataloader.py:22-25, 87-114)
+    health_bucket_items: Optional[np.ndarray] = None  # int32 [6, L], pad -1
+    health_in_sample: Optional[np.ndarray] = None     # bool [num_users]
+    train_items_arr: Optional[np.ndarray] = None      # int32 [n_train_items]
 
     @property
     def n_train(self):
@@ -152,13 +163,37 @@ class DeviceData:
                                  dtype=np.float32)
             for k, v in mh.items():
                 health_mh[k] = np.asarray(v, dtype=np.float32)
-        # loaded under use_cal_level (dataset.py); unlisted items level 0
-        cal_level = None
-        levels = getattr(dataset, "cal_level", None)
-        if levels is not None:
-            cal_level = np.zeros(dataset.n_items, dtype=np.int32)
-            for k, v in levels.items():
-                cal_level[k] = v
+        def dict_to_array(d):
+            """An item -> level dict as int32 [n_items]; unlisted items 0."""
+            if d is None:
+                return None
+            arr = np.zeros(dataset.n_items, dtype=np.int32)
+            for k, v in d.items():
+                arr[k] = v
+            return arr
+
+        # loaded under use_cal_level and use_health_level (dataset.py)
+        cal_level = dict_to_array(getattr(dataset, "cal_level", None))
+        health_level = dict_to_array(getattr(dataset, "health_level", None))
+
+        health_bucket_items = health_in_sample = train_items_arr = None
+        if hasattr(dataset, "neg_sample_set"):  # health_neg_sample
+            # buckets keyed by the positive item's health level; users
+            # outside neg_sample_set draw uniformly over the train items
+            if health_level is None:
+                raise ValueError(
+                    "health_neg_sample requires use_health_level "
+                    "(reference reads dataset.health_level[pos_i_id])")
+            buckets = [getattr(dataset, f"health_{b}") for b in range(6)]
+            width = max((len(b) for b in buckets), default=0) or 1
+            health_bucket_items = np.full((6, width), -1, dtype=np.int32)
+            for bi, b in enumerate(buckets):
+                health_bucket_items[bi, :len(b)] = np.asarray(b, np.int32)
+            health_in_sample = np.zeros(n_users, dtype=bool)
+            idx = np.asarray(sorted(dataset.neg_sample_set), dtype=np.int64)
+            health_in_sample[idx[idx < n_users]] = True
+            train_items_arr = np.asarray(dataset.train_item_list,
+                                         dtype=np.int32)
 
         eval_valid = build_eval_set(dataset.valid_users, dataset.validRatings,
                                     dataset.validNegatives)
@@ -175,4 +210,8 @@ class DeviceData:
             ingre_num=np.asarray(dataset.ingredientNum, dtype=np.int32),
             health_mh=health_mh,
             eval_valid=eval_valid, eval_test=eval_test, cal_level=cal_level,
+            health_level=health_level,
+            health_bucket_items=health_bucket_items,
+            health_in_sample=health_in_sample,
+            train_items_arr=train_items_arr,
         )

@@ -8,6 +8,10 @@ of draws T, the first acceptable draw taken and the last one if all T fail:
   * negative items: uniform, excluding the user's train and valid/test
     positives (dataloader.py:145-151). With an exclusion mass of a few
     percent, P(all 32 collide) < 1e-20.
+  * the health-stratified second negative (dataloader.py:22-25, 87-114):
+    from the health bucket of the positive item for users in
+    `neg_sample_set`, uniform over the train item list for the others,
+    tested against the same exclusion bitmap
   * SCHGN's masked-ingredient task (dataloader.py:117-143, utils.py:186-190):
     real ingredient slots masked with probability 0.2, and a negative
     ingredient per masked slot that is not in the recipe.
@@ -39,6 +43,53 @@ def sample_negatives(users, excl_bitmap, num_items, generator, n_tries=32):
     first_ok = ok.to(torch.uint8).argmax(dim=0)
     pick = torch.where(ok.any(dim=0), first_ok, n_tries - 1)
     return draws[pick, torch.arange(b, device=users.device)]
+
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def health_negative_draws(users, generator, n_tries=32):
+    """The health sampler's raw draws: int64 [n_tries, B], uniform in
+    [0, int32 max), as the JAX package draws them."""
+    return torch.randint(0, INT32_MAX, (n_tries, users.shape[0]),
+                         generator=generator, device=users.device)
+
+
+def pick_health_negatives(draws, users, pos_items, excl_bitmap, health_level,
+                          bucket_items, in_sample_set, train_items):
+    """One health-stratified negative per sample from `draws` [T, B]
+    (foodrec_tpu/data/sampling.py:42-77): a user in `in_sample_set` takes
+    slot `draw % len(bucket)` of the bucket of its positive item's health
+    level; the others, and an empty bucket, take `train_items[draw %
+    len(train_items)]`. The first candidate outside the user's positives is
+    taken, else the last.
+
+    health_level: int [num_items]; bucket_items: int [n_buckets, L] padded
+    with -1; in_sample_set: bool [num_users]; train_items: int
+    [n_train_items]. Returns int64 [B]."""
+    n_tries, b = draws.shape
+    lists = bucket_items[health_level[pos_items].long()].long()   # [B, L]
+    lens = (lists >= 0).sum(1)                                    # [B]
+    slots = draws % lens.clamp_min(1)[None, :]
+    cand_b = lists.gather(1, slots.T).T.clamp_min(0)              # [T, B]
+    cand_u = train_items.long()[draws % train_items.shape[0]]     # [T, B]
+    use_bucket = in_sample_set[users] & (lens > 0)                # [B]
+    cand = torch.where(use_bucket[None, :], cand_b, cand_u)
+    ok = ~is_excluded(excl_bitmap, users.expand(n_tries, b), cand)
+    first_ok = ok.to(torch.uint8).argmax(dim=0)
+    pick = torch.where(ok.any(dim=0), first_ok, n_tries - 1)
+    return cand[pick, torch.arange(b, device=users.device)]
+
+
+def sample_health_stratified_negatives(users, pos_items, excl_bitmap,
+                                       health_level, bucket_items,
+                                       in_sample_set, train_items, generator,
+                                       n_tries=32):
+    """`n_tries` draws from `generator`, then `pick_health_negatives`."""
+    draws = health_negative_draws(users, generator, n_tries)
+    return pick_health_negatives(draws, users, pos_items, excl_bitmap,
+                                 health_level, bucket_items, in_sample_set,
+                                 train_items)
 
 
 def ssl_mask_ingredients(ingre_codes, ingre_num, n_ingredients, generator,

@@ -6,12 +6,17 @@ FoodRec/common/trainer.py:87-503, 631-804).
 
 An epoch runs on the device without host round trips between steps: a
 device permutation of the train pairs, cut into `ceil(n_train / bs)` batches
-with the last one at its exact size; negatives drawn on the device against
-the packed exclusion bitmap (data/sampling.py); one Adam step per batch on
-the summed loss parts. Semantics kept from the JAX package:
+with the last one at its exact size (or, with `exact_final_batch: False`,
+the permutation resized cyclically to full batches and the wrapped rows
+weighted 0); negatives drawn on the device against the packed exclusion
+bitmap (data/sampling.py), and a health-stratified second negative with
+`health_neg_sample`; one optimizer step per batch on the summed loss parts.
+Semantics kept from the JAX package:
 
-  * L2 weight decay added into the gradient, then Adam with eps 1e-8
-    (torch's `Adam(weight_decay=...)`) (trainer.py:48-68)
+  * the optimizer chain of trainer.py:48-68: L2 weight decay added into the
+    gradient, then Adam (eps 1e-8, torch's `Adam(weight_decay=...)`), SGD,
+    or optax's Adagrad (`scale_by_rss`) or RMSprop (`scale_by_rms`, decay
+    0.99), written out below; an unknown name warns and takes Adam
   * the learning rate lr0 * s0 ** ((count // n_batches) / s1) of optax's
     update count (trainer.py:94-108): the JAX package's quirk, kept. Without
     Mirror Gradient that is LambdaLR's lr0 * s0 ** (epoch / s1) stepped once
@@ -24,6 +29,14 @@ the summed loss parts. Semantics kept from the JAX package:
     index in the epoch is a multiple of `beta`, a step on alpha1 * g, the
     batch replayed at the new parameters with the same dropout draws, and a
     step on -alpha2 * g2
+  * row-sparse Adam (`row_sparse_table_update`, engine/sparse_adam.py) for
+    the tables a model names (CIKM_Model's modality tables): on with True,
+    with `auto` (null) per table where it has more than 64x the batch's
+    rows; Mirror Gradient, clipping, the cosine probe, weight decay and any
+    learner but Adam keep the dense update (trainer.py:215-240)
+  * the cosine probe (`calcu_cos_similarity`, utils/diagnostics.py) summed
+    over the epoch and logged; a model without same-width id, text and
+    image tables (the six shipped ones) gives zeros, as in JAX
   * the loss parts summed on the device; the NaN check runs once every
     `epoch_scan_chunk` steps, the JAX package's granularity, and the epoch
     stops there (trainer.py:459-463)
@@ -34,13 +47,13 @@ the summed loss parts. Semantics kept from the JAX package:
     under `ckp_root` with `saved=True`), and the final test on them
     (trainer.py:588-617); `save_state_every` / `resume_from` for a run that
     stops and goes on (trainer.py:513-530, 574-586)
+  * `profile_trace_dir`: epoch 1 (the second) under torch.profiler, its
+    trace written there (trainer.py:534-547)
 
 Random streams come from one `torch.Generator` on the model's device, seeded
 from config['seed']: the permutation, the negatives and the dropout masks.
-Not ported yet (ROADMAP.md): the cosine probe, row-sparse Adam,
-health-stratified negatives, the padded final batch (`exact_final_batch:
-False`), learners other than Adam, the device mesh (`mesh_shape`) and the
-profiler trace (`profile_trace_dir`); each raises where it is set.
+Not ported yet (ROADMAP.md): the device mesh (`mesh_shape`), which raises
+where it is set.
 """
 
 import functools
@@ -53,37 +66,101 @@ import numpy as np
 import torch
 
 from foodrec_tpu_torch.data.device import build_eval_set
-from foodrec_tpu_torch.data.sampling import sample_negatives
+from foodrec_tpu_torch.data.sampling import (
+    sample_health_stratified_negatives,
+    sample_negatives,
+)
 from foodrec_tpu_torch.engine import checkpoint as ckpt
 from foodrec_tpu_torch.engine.evaluator import evaluate_by_user
+from foodrec_tpu_torch.engine.sparse_adam import (
+    apply_update_row_sparse,
+    supports_row_sparse,
+)
 from foodrec_tpu_torch.engine.topk_evaluator import (
     TopKEvaluator,
     full_sort_topk,
     sample_rank_metrics,
 )
+from foodrec_tpu_torch.utils.diagnostics import embedding_cos_similarity
 from foodrec_tpu_torch.utils.misc import dict2str, early_stopping
 
 
+def _decayed(p, g, weight_decay):
+    """optax.add_decayed_weights: g + weight_decay * p."""
+    return g + weight_decay * p if weight_decay else g
+
+
+class Adagrad(torch.optim.Optimizer):
+    """optax's `scale_by_rss(initial_accumulator_value=0, eps=1e-10)` after
+    the decay: s = g^2 + s, then p -= lr * g * rsqrt(s + eps), with 0 where
+    s = 0 (torch.optim.Adagrad divides by sqrt(s) + eps instead)."""
+
+    def __init__(self, params, lr, weight_decay=0.0, eps=1e-10):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      eps=eps))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = _decayed(p, p.grad, group["weight_decay"])
+                state = self.state[p]
+                if not state:
+                    state["sum_of_squares"] = torch.zeros_like(p)
+                s = state["sum_of_squares"]
+                s.copy_(g * g + s)
+                scale = torch.where(s > 0, torch.rsqrt(s + group["eps"]), 0.0)
+                p.add_(-group["lr"] * (scale * g))
+
+
+class RMSprop(torch.optim.Optimizer):
+    """optax's `scale_by_rms(decay=0.99, eps=1e-8)` after the decay:
+    nu = (1 - decay) g^2 + decay nu from nu = 0, then p -= lr * g *
+    rsqrt(nu + eps) (torch.optim.RMSprop divides by sqrt(nu) + eps)."""
+
+    def __init__(self, params, lr, weight_decay=0.0, decay=0.99, eps=1e-8):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            decay = group["decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = _decayed(p, p.grad, group["weight_decay"])
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.copy_((1 - decay) * g ** 2 + decay * nu)
+                p.add_(-group["lr"] * (torch.rsqrt(nu + group["eps"]) * g))
+
+
 def build_optimizer(learner, params, lr, weight_decay):
-    """L2 weight decay in the gradient, then Adam eps 1e-8
-    (trainer.py:48-68)."""
-    if (learner or "adam").lower() != "adam":
-        raise NotImplementedError(
-            f"learner {learner!r} is not ported yet; only adam is")
+    """The JAX package's chain (trainer.py:48-68): L2 weight decay in the
+    gradient, then the learner's rule, at lr (set before each update)."""
+    learner = (learner or "adam").lower()
+    if learner == "sgd":
+        return torch.optim.SGD(params, lr=lr, weight_decay=weight_decay)
+    if learner == "adagrad":
+        return Adagrad(params, lr, weight_decay)
+    if learner == "rmsprop":
+        return RMSprop(params, lr, weight_decay)
+    if learner != "adam":
+        logging.getLogger().warning(
+            "Received unrecognized optimizer, set default Adam optimizer")
     return torch.optim.Adam(params, lr=lr, eps=1e-8, weight_decay=weight_decay)
 
 
 class Trainer:
     def __init__(self, config, model, mg=False):
-        for key in ("health_neg_sample", "calcu_cos_similarity", "mesh_shape",
-                    "profile_trace_dir"):
-            if config[key]:
-                raise NotImplementedError(
-                    f"{key} is not ported yet (ROADMAP.md)")
-        if config["exact_final_batch"] is False:
+        if config["mesh_shape"]:
             raise NotImplementedError(
-                "the padded final batch (exact_final_batch: False) is not "
-                "ported; the last batch runs at its exact size")
+                "mesh_shape is not ported yet (ROADMAP.md)")
         self.config = config
         self.model = model
         self.logger = logging.getLogger()
@@ -104,6 +181,10 @@ class Trainer:
         self.train_batch_size = config["train_batch_size"]
         self.n_train = dd.n_train
         self.n_batches = -(-self.n_train // self.train_batch_size)
+        # the tail at its exact size unless exact_final_batch is False
+        # (trainer.py:259-261)
+        exact = config["exact_final_batch"]
+        self.pad_tail = not (exact or exact is None)
         self.chunk = min(config["epoch_scan_chunk"] or self.n_batches,
                          self.n_batches)
         self.num_items = dd.num_items  # the sampler's range (trainer.py:194)
@@ -118,18 +199,40 @@ class Trainer:
         self.lr_schedule = lr_schedule
         self.n_updates = 0  # optax's update count, which the lr reads
         self.epoch_batch = 0  # the index in the epoch of the next batch
+        weight_decay = float(config["weight_decay"] or 0.0)
         self.optimizer = build_optimizer(
-            config["learner"], model.parameters(), lr0,
-            float(config["weight_decay"] or 0.0))
+            config["learner"], model.parameters(), lr0, weight_decay)
         # the epoch's lr, logged as the JAX package logs
         # lr_schedule(epoch * n_batches)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
             self.optimizer, lambda epoch: s0 ** (epoch / s1))
 
+        # the cosine probe, summed over the epoch (trainer.py:212-214)
+        self.probe_on = bool(config["calcu_cos_similarity"])
+        self._epoch_cos_sim = None
+        # row-sparse Adam where no guard forces the dense update
+        # (trainer.py:228-240)
+        rs_cfg = config["row_sparse_table_update"]
+        self.rs_auto = rs_cfg is None or rs_cfg == "auto"
+        self.row_sparse_on = ((self.rs_auto or bool(rs_cfg)) and not mg
+                              and not self.clip_grad_norm
+                              and not self.probe_on and not weight_decay
+                              and supports_row_sparse(self.optimizer))
+
         dev = model.device
         self._train_u = torch.as_tensor(dd.train_u).to(dev, torch.int64)
         self._train_i = torch.as_tensor(dd.train_i).to(dev, torch.int64)
         self._excl = torch.from_numpy(dd.excl_bitmap.view(np.int32)).to(dev)
+        # health-stratified second negatives (trainer.py:196-209)
+        self.hns = bool(config["health_neg_sample"])
+        if self.hns:
+            if dd.health_bucket_items is None:
+                raise ValueError(
+                    "health_neg_sample set but DeviceData has no bucket arrays")
+            self._health = tuple(
+                torch.as_tensor(a).to(dev) for a in (
+                    dd.health_level, dd.health_bucket_items,
+                    dd.health_in_sample, dd.train_items_arr))
         seed = config["seed"]
         if isinstance(seed, (list, tuple)):
             seed = seed[0]
@@ -142,32 +245,49 @@ class Trainer:
 
     # ------------------------------------------------------------------ train
     def train_steps(self, batches):
-        """One optimizer step per `(u, pos, neg)` batch of int64 id tensors
-        on the model's device, two for a Mirror Gradient batch. Returns the
-        loss parts summed over the batches (a Mirror Gradient batch's first
-        pass), [n_parts] on the device.
+        """One optimizer step per batch, two for a Mirror Gradient batch.
+        A batch is `(u, pos, neg)`, int64 id tensors on the model's device,
+        or `(u, pos, neg, extra)` with `extra` a dict that may hold the
+        sample `weight` [B] (the padded final batch) and `health_neg`.
+        Returns the loss parts summed over the batches (a Mirror Gradient
+        batch's first pass), [n_parts] on the device.
 
         `beta` counts a batch's index in the epoch, `epoch_batch`: the
         batches stepped since `train_epoch` began the epoch, modulo
         n_batches, so that whole epochs passed through here one after
         another (the lockstep tests' replays) index alike."""
         total = None
-        for u, pos, neg in batches:
+        for u, pos, neg, *extra in batches:
+            weight = extra[0].get("weight") if extra else None
             if self.mg and self.epoch_batch % self.beta == 0:
-                parts = self._mirror_step(u, pos, neg)
+                parts, g_probe = self._mirror_step(u, pos, neg, weight)
             else:
-                parts = self._backward(u, pos, neg)
-                self._update()
+                rows = self._row_sparse_rows(pos, neg)
+                if rows:
+                    parts, g_probe = self._row_sparse_step(
+                        u, pos, neg, weight, rows), None
+                else:
+                    parts = self._backward(u, pos, neg, weight)
+                    g_probe = self._probe_grads()
+                    self._update()
+            if self.probe_on:
+                self._probe(g_probe)
             self.epoch_batch = (self.epoch_batch + 1) % self.n_batches
             total = parts if total is None else total + parts
         return total
 
-    def _backward(self, u, pos, neg):
+    def _backward(self, u, pos, neg, weight=None):
         """The loss parts of one batch, their sum's gradient left in .grad."""
-        parts = self.model.calculate_loss(u, pos, neg, generator=self.generator)
+        parts = self.model.calculate_loss(u, pos, neg, generator=self.generator,
+                                          weight=weight)
         self.optimizer.zero_grad(set_to_none=True)
         sum(parts).backward()
         return torch.stack(parts).detach()
+
+    def _set_lr(self):
+        lr = self.lr_schedule(self.n_updates)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
 
     def _update(self, scale=None):
         """One optimizer step on the gradients times `scale`, clipped, at
@@ -180,43 +300,115 @@ class Trainer:
             torch.nn.utils.clip_grad_norm_(
                 self.model.parameters(),
                 self.clip_grad_norm.get("max_norm", 1.0))
-        lr = self.lr_schedule(self.n_updates)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        self._set_lr()
         self.optimizer.step()
         self.n_updates += 1
 
-    def _mirror_step(self, u, pos, neg):
+    def _mirror_step(self, u, pos, neg, weight=None):
         """Mirror Gradient on one batch: a step on alpha1 * g, then the batch
         again at the new parameters, the generator restored so that it draws
         the same dropout masks (the JAX package replays the same key), and a
-        step on -alpha2 * g2. Returns the first pass's loss parts."""
+        step on -alpha2 * g2. Returns the first pass's loss parts and its
+        probe gradients."""
         state = self.generator.get_state()
-        parts = self._backward(u, pos, neg)
+        parts = self._backward(u, pos, neg, weight)
+        g_probe = self._probe_grads()
         self._update(self.alpha1)
         self.generator.set_state(state)
-        self._backward(u, pos, neg)
+        self._backward(u, pos, neg, weight)
         self._update(-self.alpha2)
+        return parts, g_probe
+
+    def _row_sparse_rows(self, pos, neg):
+        """{table name: row ids} of this batch's row-sparse tables; empty
+        where the dense update runs (trainer.py:234-238, 287-290): `auto`
+        keeps a table only where n_rows > 64 x the batch's rows."""
+        if not self.row_sparse_on:
+            return {}
+        rows = self.model.row_sparse_tables(pos, neg)
+        if self.rs_auto:
+            params = dict(self.model.named_parameters())
+            rows = {n: r for n, r in rows.items()
+                    if params[n].shape[0] > 64 * r.shape[0]}
+        return rows
+
+    def _row_sparse_step(self, u, pos, neg, weight, rows):
+        """One Adam step that differentiates the loss with respect to the
+        gathered rows of the tables in `rows`, never the tables
+        (trainer.py:291-302)."""
+        params = dict(self.model.named_parameters())
+        tables = {n: (params[n], r) for n, r in rows.items()}
+        gathered = {n: params[n].detach()[r].requires_grad_()
+                    for n, r in rows.items()}
+        with self.model.gathered_rows(gathered):
+            parts = self._backward(u, pos, neg, weight)
+        self._set_lr()
+        apply_update_row_sparse(self.optimizer, tables, gathered)
+        self.n_updates += 1
         return parts
+
+    def _probe_grads(self):
+        """The probe's (id, text, image) gradients, copied before the
+        update; None when the probe is off or the model has no such
+        tables."""
+        if not self.probe_on:
+            return None
+        g = self.model.diagnostic_embeddings(
+            {n: p.grad for n, p in self.model.named_parameters()})
+        return None if g is None else tuple(t.detach().clone() for t in g)
+
+    def _probe(self, g_probe):
+        """Add this step's six cosine numbers (of the updated tables and the
+        step's gradients) to the epoch's sum; zeros without the tables."""
+        emb = self.model.diagnostic_embeddings(
+            {n: p.detach() for n, p in self.model.named_parameters()})
+        if emb is None or g_probe is None:
+            sim = torch.zeros(6, device=self.model.device)
+        else:
+            sim = torch.stack(embedding_cos_similarity(*emb, *g_probe))
+        self._epoch_cos_sim = (sim if self._epoch_cos_sim is None
+                               else self._epoch_cos_sim + sim)
+
+    def _epoch_perm(self):
+        """The epoch's permutation of the train pairs; with the padded tail,
+        resized cyclically to n_batches * bs, as `jnp.resize` does
+        (trainer.py:343-350)."""
+        perm = torch.randperm(self.n_train, generator=self.generator,
+                              device=self.model.device)
+        if self.pad_tail:
+            total = self.n_batches * self.train_batch_size
+            perm = perm.repeat(-(-total // self.n_train))[:total]
+        return perm
 
     def _batches(self, perm, first, last):
         """Batches `first` to `last - 1` of the epoch's permutation, with
-        negatives drawn on the device as each is needed."""
+        negatives (and health negatives) drawn on the device as each is
+        needed. With the padded tail every batch has the full size and the
+        weight (position < n_train) (trainer.py:264-281)."""
         bs = self.train_batch_size
         for b in range(first, last):
-            idx = perm[b * bs:(b + 1) * bs]  # the last batch at its exact size
+            idx = perm[b * bs:(b + 1) * bs]  # the tail at its exact size
             u = self._train_u[idx]
+            pos = self._train_i[idx]
             neg = sample_negatives(u, self._excl, self.num_items,
                                    self.generator, n_tries=self.n_tries)
-            yield u, self._train_i[idx], neg
+            extra = {}
+            if self.pad_tail:
+                extra["weight"] = (b * bs + torch.arange(
+                    bs, device=u.device) < self.n_train).float()
+            if self.hns:
+                extra["health_neg"] = sample_health_stratified_negatives(
+                    u, pos, self._excl, *self._health, self.generator,
+                    n_tries=self.n_tries)
+            yield (u, pos, neg, extra) if extra else (u, pos, neg)
 
     def train_epoch(self):
         """One pass over the train pairs in a fresh device permutation;
         returns the summed loss parts on the device. A non-finite chunk of
         `epoch_scan_chunk` steps ends the epoch early."""
-        perm = torch.randperm(self.n_train, generator=self.generator,
-                              device=self.model.device)
+        perm = self._epoch_perm()
         self.epoch_batch = 0
+        self._epoch_cos_sim = None
         loss_parts = None
         for first in range(0, self.n_batches, self.chunk):
             parts = self.train_steps(self._batches(
@@ -224,6 +416,25 @@ class Trainer:
             loss_parts = parts if loss_parts is None else loss_parts + parts
             if self.chunk < self.n_batches and not torch.isfinite(parts).all():
                 break
+        return loss_parts
+
+    def _traced_epoch(self, trace_dir):
+        """train_epoch under torch.profiler (CPU, and CUDA on the card), its
+        chrome trace written to `trace_dir`/epoch_1.pt.trace.json."""
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.model.device.type == "cuda"
+        activities = [ProfilerActivity.CPU]
+        if cuda:
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            loss_parts = self.train_epoch()
+            if cuda:
+                torch.cuda.synchronize()
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, "epoch_1.pt.trace.json")
+        prof.export_chrome_trace(path)
+        self.logger.info(f"profiler trace of epoch 1: {path}")
         return loss_parts
 
     # ------------------------------------------------------------------- fit
@@ -252,10 +463,17 @@ class Trainer:
             start_epoch, cur_step = self._resume(config["resume_from"])
         best_state = self._host_snapshot()
 
+        # epoch 1 under the profiler, epoch 0 paying the warm-up
+        # (trainer.py:534-547)
+        trace_dir = config["profile_trace_dir"]
         for epoch_idx in range(start_epoch, self.epochs):
             t0 = time.time()
             if self.req_training:
-                loss_parts = self.train_epoch().cpu().numpy()
+                if trace_dir and epoch_idx == 1:
+                    loss_parts = self._traced_epoch(trace_dir)
+                else:
+                    loss_parts = self.train_epoch()
+                loss_parts = loss_parts.cpu().numpy()
                 if not np.isfinite(loss_parts).all():
                     self.logger.info(
                         f"Loss is nan at epoch: {epoch_idx}. Exiting.")
@@ -268,6 +486,13 @@ class Trainer:
                 self.logger.info(
                     f"epoch {epoch_idx} training [time: "
                     f"{time.time() - t0:.2f}s, lr: {lr_now:.6f}, {parts_str}]")
+                if self.probe_on and self._epoch_cos_sim is not None:
+                    c = self._epoch_cos_sim.tolist()
+                    self.logger.info(
+                        "cos-sim (summed over batches) [id-text: "
+                        f"{c[0]:.4f}, grad: {c[1]:.4f}, id-image: {c[2]:.4f}, "
+                        f"grad: {c[3]:.4f}, pos(text>id): {c[4]:.4f}, "
+                        f"pos(image>id): {c[5]:.4f}]")
                 self.scheduler.step()
 
             every = config["save_state_every"]

@@ -7,9 +7,11 @@ buffers, its graph tables and item side tables. It reads its arrays from the
 dataset's `device_data` (a `DeviceData`, attached by the caller as in the
 JAX package). Training calls
 
-    calculate_loss(user, pos_item, neg_item, generator)
+    calculate_loss(user, pos_item, neg_item, generator, weight=None)
                                           -> tuple of scalar losses, summed
-                                             for the gradient
+                                             for the gradient; `weight` [B]
+                                             is the padded final batch's
+                                             0/1 sample weight (None: ones)
 
 and evaluation splits into
 
@@ -19,6 +21,8 @@ and evaluation splits into
     score_items(cache, users, items)      -> [B, C] scores against one shared
                                              item list (full-catalog top-k)
 """
+
+import contextlib
 
 import numpy as np
 import torch
@@ -50,6 +54,7 @@ class GeneralRecommender(nn.Module):
         self.n_users = dataset.n_users
         self.n_items = dataset.n_items
         self.embedding_size = config["embedding_size"]
+        self._gathered = {}  # rows the trainer gathered (gathered_rows)
         # modality features as host float32 tables
         # (abstract_recommender.py:84-91); a model that trains them makes
         # them parameters
@@ -57,6 +62,56 @@ class GeneralRecommender(nn.Module):
         if config["is_multimodal_model"] and not config["end2end"]:
             self.v_feat = np.asarray(self.dd.img, dtype=np.float32)
             self.t_feat = np.asarray(self.dd.txt, dtype=np.float32)
+
+    # -- row-sparse table contract (foodrec_tpu/models/base.py:110-130) ----
+    def row_sparse_tables(self, pos_item, neg_item):
+        """Parameter tables whose per-step gradient is nonzero only at a
+        known row set: {param name: row ids [K]}. The trainer gathers those
+        rows outside autograd, differentiates the loss with respect to the
+        gathered [K, D] rows and applies the row-sparse Adam update
+        (engine/sparse_adam.py), so no table-sized gradient is made. A model
+        that opts in reads those tables through `gather_rows`. Default: no
+        tables (the dense path)."""
+        return {}
+
+    @contextlib.contextmanager
+    def gathered_rows(self, rows):
+        """While it is open, `gather_rows(name, idx)` returns `rows[name]`,
+        the rows the trainer gathered for exactly this `idx`."""
+        self._gathered = rows
+        try:
+            yield
+        finally:
+            self._gathered = {}
+
+    def gather_rows(self, name, idx):
+        """`getattr(self, name)[idx]`, unless the trainer gathered this
+        table's rows (the row-sparse path)."""
+        if name in self._gathered:
+            return self._gathered[name]
+        return getattr(self, name)[idx]
+
+    def diagnostic_embeddings(self, tree):
+        """The same-width (id, text, image) tables of the cosine probe
+        (foodrec_tpu/models/base.py:157-173; reference trainer.py:584-629)
+        from `tree`, a {parameter name: tensor} dict of the parameters or of
+        their gradients; None unless the three exist with one width, as on
+        the six shipped models, where the probe is then skipped."""
+        keys = ("item_embedding", "text_embedding", "image_embedding")
+        if not all(tree.get(k) is not None for k in keys):
+            return None
+        mats = [tree[k] for k in keys]
+        if len({m.shape[-1] for m in mats}) != 1:
+            return None
+        return tuple(mats)
+
+    def sample_weight(self, user, weight):
+        """The per-sample loss weight [B]: `weight` in the parameters'
+        dtype, or ones (every row counts)."""
+        dtype = next(self.parameters()).dtype
+        if weight is None:
+            return torch.ones(user.shape[0], dtype=dtype, device=user.device)
+        return weight.to(dtype)
 
     def propagator(self, adj):
         """A Propagator over `adj` with the config's spmm_impl and
@@ -68,7 +123,8 @@ class GeneralRecommender(nn.Module):
     def forward(self):
         raise NotImplementedError
 
-    def calculate_loss(self, user, pos_item, neg_item, generator=None):
+    def calculate_loss(self, user, pos_item, neg_item, generator=None,
+                       weight=None):
         raise NotImplementedError
 
     @torch.no_grad()

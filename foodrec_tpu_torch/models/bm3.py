@@ -7,7 +7,9 @@ A LightGCN encoder over users+items with a residual item-id table
 (bm3.py:87-98), and BYOL-style losses between online embeddings passed
 through one shared linear `predictor` and stop-gradient targets perturbed
 by dropout (bm3.py:100-150). The image and text tables are trainable, as the
-reference trains them (`from_pretrained(freeze=False)`, bm3.py:53-58).
+reference trains them (`from_pretrained(freeze=False)`, bm3.py:53-58), unless
+`freeze_modality_tables: True` keeps them as buffers, out of the optimizer
+(the JAX package's opt-in, bm3.py:71-99).
 Serving scores are dot products of the predictor's outputs.
 
 The dropout masks draw from the `generator` that calculate_loss is given, in
@@ -48,10 +50,7 @@ class BM3(GeneralRecommender):
         self.reg_weight = config["reg_weight"]
         self.cl_weight = config["cl_weight"]
         self.dropout = config["dropout"]
-        if config["freeze_modality_tables"]:
-            raise NotImplementedError(
-                "freeze_modality_tables is not ported (the reference trains "
-                "the modality tables)")
+        frozen = bool(config["freeze_modality_tables"])
 
         rows, cols = ui_bipartite_edges(dataset.train_coo_matrix, self.n_users)
         self.prop = self.propagator(
@@ -71,8 +70,12 @@ class BM3(GeneralRecommender):
             if feat is None:
                 continue
             self.modalities.append(name)
-            setattr(self, f"{name}_embedding", nn.Parameter(
-                torch.from_numpy(feat.copy()).to(self.device)))
+            table = torch.from_numpy(feat.copy()).to(self.device)
+            if frozen:
+                self.register_buffer(f"{name}_embedding", table,
+                                     persistent=False)
+            else:
+                setattr(self, f"{name}_embedding", nn.Parameter(table))
             setattr(self, f"{name}_trs", as_parameters(torch_linear(
                 feat.shape[1], d, g, init=xavier_normal), self.device))
 
@@ -86,11 +89,12 @@ class BM3(GeneralRecommender):
         u, i = self._gnn_encode()
         return linear_apply(self.predictor, u), linear_apply(self.predictor, i)
 
-    def calculate_loss(self, user, pos_item, neg_item, generator=None):
+    def calculate_loss(self, user, pos_item, neg_item, generator=None,
+                       weight=None):
         """(loss_ui + loss_iu, reg, cl_weight * the modality losses) for one
-        batch of int64 ids [B]; `generator` draws the dropout masks."""
-        weight = torch.ones(user.shape[0], dtype=self.user_embedding.dtype,
-                            device=user.device)
+        batch of int64 ids [B], weighted by `weight` (or ones); `generator`
+        draws the dropout masks."""
+        weight = self.sample_weight(user, weight)
         u_online_ori, i_online_ori = self._gnn_encode()
 
         # stop-gradient dropout targets (bm3.py:108-122)

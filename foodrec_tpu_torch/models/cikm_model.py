@@ -16,8 +16,13 @@
 The parameters are named like the JAX package's pytree (`encoder.0.in_proj_w`,
 `health_mlp.l1.w`, ...), with linear weights stored [in, out], so
 `utils/weights.py` carries them over one to one. The image and text tables
-are trainable parameters, as the reference trains them
-(`freeze_modality_tables: False`).
+are trainable parameters, as the reference trains them, unless
+`freeze_modality_tables: True` keeps them as buffers, out of the optimizer
+(the JAX package's opt-in, cikm_model.py:132-135). They opt into the
+row-sparse Adam path (`row_sparse_tables`). With `use_health_level_multi_hot:
+False` the health head's width is the dataset's `num_health_level` (0
+unless `load_RecipeHealth_graph` is set) and its target is all zeros, as in
+the JAX package (cikm_model.py:83-86, 120-122).
 
 Faithful quirks kept from the JAX package:
   * forward()'s propagated ingredient output is not used by the loss, which
@@ -30,6 +35,7 @@ Faithful quirks kept from the JAX package:
     and divides by the true ingredient count
 """
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -79,10 +85,7 @@ class CIKM_Model(GeneralRecommender):
         self.nhead = config["num_attention_heads"]
         self.attn_dropout = config["attention_probs_dropout_prob"]
         self.hidden_act = config["hidden_act"]
-        if config["freeze_modality_tables"]:
-            raise NotImplementedError(
-                "freeze_modality_tables is not ported (the reference trains "
-                "the modality tables)")
+        self.freeze_mm = bool(config["freeze_modality_tables"])
 
         # user-item graph (cikm_model.py:139-180)
         rows, cols = ui_bipartite_edges(dataset.train_coo_matrix, self.n_users)
@@ -97,16 +100,18 @@ class CIKM_Model(GeneralRecommender):
                                      self.n_items + self.n_ingredients))
 
         # item side tables, gathered per batch (cikm_model.py:115-124)
-        if dd.health_mh is None:
-            raise NotImplementedError(
-                "use_health_level_multi_hot: False (the scalar health level) "
-                "is not ported; CIKM_Model.yaml sets it True")
+        if config["use_health_level_multi_hot"]:
+            n_health = len(dataset.health_level_multi_hot[0])
+        else:
+            n_health = dataset.num_health_level
+        health_mh = dd.health_mh
+        if health_mh is None:
+            health_mh = np.zeros((self.n_items, n_health), np.float32)
         for name, arr, dtype in (("ingre_codes", dd.ingre_codes, torch.int64),
                                  ("ingre_num", dd.ingre_num, torch.int32),
-                                 ("health_mh", dd.health_mh, torch.float32)):
+                                 ("health_mh", health_mh, torch.float32)):
             self.register_buffer(name, torch.as_tensor(arr).to(
                 device=self.device, dtype=dtype), persistent=False)
-        n_health = self.health_mh.shape[1]
 
         # leaf order of the JAX package's init_params (cikm_model.py:137-159)
         g = generator or torch.Generator().manual_seed(0)
@@ -132,8 +137,23 @@ class CIKM_Model(GeneralRecommender):
             torch_linear(img.shape[1], d, g, init=xavier_normal), self.device)
         self.text_trs = as_parameters(
             torch_linear(txt.shape[1], d, g, init=xavier_normal), self.device)
-        self.image_embedding = nn.Parameter(img.to(self.device))
-        self.text_embedding = nn.Parameter(txt.to(self.device))
+        if self.freeze_mm:
+            # constant tables, not in the state_dict (nor in the JAX pytree)
+            self.register_buffer("image_embedding", img.to(self.device),
+                                 persistent=False)
+            self.register_buffer("text_embedding", txt.to(self.device),
+                                 persistent=False)
+        else:
+            self.image_embedding = nn.Parameter(img.to(self.device))
+            self.text_embedding = nn.Parameter(txt.to(self.device))
+
+    def row_sparse_tables(self, pos_item, neg_item):
+        """Both modality tables at the batch's [pos; neg] rows, unless they
+        are frozen (cikm_model.py:165-177)."""
+        if self.freeze_mm:
+            return {}
+        items2 = torch.cat([pos_item, neg_item])
+        return {"image_embedding": items2, "text_embedding": items2}
 
     def forward(self):
         ingre = self.ingre_embedding
@@ -146,13 +166,12 @@ class CIKM_Model(GeneralRecommender):
         ui_all = propagate_mean(self.ui_prop, ui_ego, self.ui_layers)
         return ui_all[: self.n_users], ui_all[self.n_users:], ingre_ir
 
-    def calculate_loss(self, user, pos_item, neg_item, generator=None):
+    def calculate_loss(self, user, pos_item, neg_item, generator=None,
+                       weight=None):
         """(mf, health, kd, reg) for one batch of int64 ids [B]; `generator`
         draws the encoder's dropout. The losses take the JAX epoch's weighted
-        formulas with its weight of ones (every batch, the tail included,
-        runs at its exact size)."""
-        weight = torch.ones(user.shape[0], dtype=self.user_embedding.dtype,
-                            device=user.device)
+        formulas, with `weight` (the padded final batch's) or ones."""
+        weight = self.sample_weight(user, weight)
         w2 = torch.cat([weight, weight])
         items2 = torch.cat([pos_item, neg_item])              # [2B]
         ingredients = self.ingre_codes[items2]                # [2B, 20]
@@ -170,8 +189,10 @@ class CIKM_Model(GeneralRecommender):
 
         # multimodal queries (cikm_model.py:240-246)
         mm_query = torch.stack(
-            [linear_apply(self.image_trs, self.image_embedding[items2]),
-             linear_apply(self.text_trs, self.text_embedding[items2])],
+            [linear_apply(self.image_trs,
+                          self.gather_rows("image_embedding", items2)),
+             linear_apply(self.text_trs,
+                          self.gather_rows("text_embedding", items2))],
             dim=1)                                            # [2B, 2, D]
         item_health = target_attention_apply(
             self.mm_target_atten, mm_query, encoded, self.nhead,

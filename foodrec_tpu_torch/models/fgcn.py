@@ -130,11 +130,11 @@ class FGCN(GeneralRecommender):
     def forward(self):
         return self.gnn_encode()[:2]
 
-    def calculate_loss(self, user, pos_item, neg_item, generator=None):
+    def calculate_loss(self, user, pos_item, neg_item, generator=None,
+                       weight=None):
         """(mf, reg) for one batch of int64 ids [B]; `generator` draws the
         message dropout."""
-        weight = torch.ones(user.shape[0], dtype=self.user_embedding.dtype,
-                            device=user.device)
+        weight = self.sample_weight(user, weight)
         user_all, item_all, _ = self.gnn_encode(generator, training=True)
         u_e = user_all[user]
         pos_e = item_all[pos_item]

@@ -13,6 +13,8 @@ from the JAX package:
     the text features
   * the free item table feeds only the reg term, which reads the raw
     tables, not the propagated ones (lightgcn.py:167-175)
+With `freeze_modality_tables: True` the feature table is a buffer, out of
+the optimizer (the JAX package's opt-in, lightgcn.py:46-87).
 """
 
 import torch
@@ -42,10 +44,7 @@ class LightGCN(GeneralRecommender):
         flag = config["flagD"]
         self.flagD = int(flag[0] if isinstance(flag, (list, tuple))
                          else (flag or 3))
-        if config["freeze_modality_tables"]:
-            raise NotImplementedError(
-                "freeze_modality_tables is not ported (the reference trains "
-                "the feature table)")
+        frozen = bool(config["freeze_modality_tables"])
 
         rows, cols = ui_bipartite_edges(dataset.train_coo_matrix, self.n_users)
         self.prop = self.propagator(
@@ -63,8 +62,12 @@ class LightGCN(GeneralRecommender):
         if self.has_feat:
             self.image_trs = as_parameters(
                 default_linear(feat.shape[1], d, g), self.device)
-            self.image_embedding = nn.Parameter(
-                torch.from_numpy(feat.copy()).to(self.device))
+            table = torch.from_numpy(feat.copy()).to(self.device)
+            if frozen:
+                self.register_buffer("image_embedding", table,
+                                     persistent=False)
+            else:
+                self.image_embedding = nn.Parameter(table)
 
     def _ego(self):
         if self.has_feat:
@@ -77,10 +80,11 @@ class LightGCN(GeneralRecommender):
         all_emb = propagate_mean(self.prop, self._ego(), self.n_layers)
         return all_emb[: self.n_users], all_emb[self.n_users:]
 
-    def calculate_loss(self, user, pos_item, neg_item, generator=None):
-        """(mf, reg) for one batch of int64 ids [B]; nothing is random."""
-        weight = torch.ones(user.shape[0], dtype=self.user_embedding.dtype,
-                            device=user.device)
+    def calculate_loss(self, user, pos_item, neg_item, generator=None,
+                       weight=None):
+        """(mf, reg) for one batch of int64 ids [B], weighted by `weight`
+        (or ones); nothing is random."""
+        weight = self.sample_weight(user, weight)
         user_all, item_all = self.forward()
         u_e = user_all[user]
         mf_loss = bpr_loss((u_e * item_all[pos_item]).sum(1),

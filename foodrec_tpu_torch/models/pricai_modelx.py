@@ -113,11 +113,11 @@ class PRICAI_ModelX(GeneralRecommender):
         return (ui_all[: self.n_users], ui_all[self.n_users:],
                 (item_image, item_text, item_ingre))
 
-    def calculate_loss(self, user, pos_item, neg_item, generator=None):
+    def calculate_loss(self, user, pos_item, neg_item, generator=None,
+                       weight=None):
         """(mf, loss_cl * dCor, reg) for one batch of int64 ids [B];
         nothing is random."""
-        weight = torch.ones(user.shape[0], dtype=self.user_embedding.dtype,
-                            device=user.device)
+        weight = self.sample_weight(user, weight)
         all_item = torch.cat([pos_item, neg_item])
         user_all, item_all, (image_v, text_v, ingre_v) = self.forward()
         item_image = image_v[all_item]

@@ -244,15 +244,15 @@ class SCHGN(GeneralRecommender):
 
     # ------------------------------------------------------------------ loss
     def calculate_loss(self, user, pos_item, neg_item, generator=None,
-                       deterministic=False, ssl_seqs=None):
+                       weight=None, deterministic=False, ssl_seqs=None):
         """(bpr, reg, ssl) for one batch of int64 ids [B]; `generator` draws
         the score dropout, the SSL masks and the encoder's dropout. The
-        losses take the JAX epoch's weighted formulas with its weight of
-        ones. Test seams, as the JAX package's: `deterministic` turns off
-        the score dropout only, and `ssl_seqs=(masked, pos, neg)` replaces
-        the SSL sequences drawn on the device."""
-        weight = torch.ones(user.shape[0], dtype=self.user_embed.dtype,
-                            device=user.device)
+        losses take the JAX epoch's weighted formulas, with `weight` (the
+        padded final batch's) or ones. Test seams, as the JAX package's:
+        `deterministic` turns off the score dropout only, and
+        `ssl_seqs=(masked, pos, neg)` replaces the SSL sequences drawn on
+        the device."""
+        weight = self.sample_weight(user, weight)
         tables = self._gcn()
         training = not deterministic
         pos_scores = self._score(tables, user, pos_item, generator, training)

@@ -6,7 +6,11 @@ package that the port has (numpy arrays, e.g. after `jax.device_get`) and
 returns the port module's state_dict. The port names its parameters like
 the pytree, so a leaf at `params["encoder"][1]["ff1_w"]` is
 `encoder.1.ff1_w` in the port and `params["ir_aggs"][0]["W1"]["w"]` is
-`ir_aggs.0.W1.w`, with the same [in, out] layout.
+`ir_aggs.0.W1.w`, with the same [in, out] layout; an `mlp_layers_params`
+list is `0.w`, `0.b`, `1.w`, ... either way. The variants map the same
+way: with `freeze_modality_tables` the image and text tables are buffers
+outside the state_dict, as they are outside the JAX pytree, and CIKM_Model's
+health head has the scalar level's width where the config asks for it.
 """
 
 import numpy as np

@@ -1,8 +1,9 @@
 """PyTorch port, the experiment driver: config layers and the grid, the
 runner's flags, quick_start's leaderboard, checkpoints and resume,
 `req_training: False`, the faults the port had against the JAX package
-(unread config keys, `spmm_impl: pallas`) and the dataset's statistics and
-study splits, against the JAX package on the toy synthetic dataset.
+(unread config keys, `spmm_impl: pallas`), the graph flags and the profiler
+trace, and the dataset's statistics and study splits, against the JAX
+package on the toy synthetic dataset.
 
 Exact comparisons throughout, except the metrics of the JAX package's `fit`
 against the port's on the same parameters: within 1e-6 (float32 sums taken
@@ -388,28 +389,96 @@ def test_checkpoint_name_equals_jax(untrained):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("key,value", [
-    ("load_RecipeRecipe_graph", True), ("load_RecipeHealth_graph", True),
-    ("use_health_level", True), ("load_RecipeRecipeCo_graph", True),
-    ("load_RecipeRecipeIng_graph", True),
-    ("load_RecipeRecipeHealth_graph", True),
-    ("mesh_shape", {"data": 2}), ("profile_trace_dir", "trace/"),
-])
-def test_unported_config_keys_raise(synth_root, cikm, key, value):
-    """A key the port does not read raises where the JAX package reads it
-    (FoodData for the graph files, the Trainer for the mesh and the trace),
-    instead of a run that goes on as if it were unset."""
-    from foodrec_tpu_torch.data.dataset import FoodData
+def test_unported_config_keys_raise(synth_root, cikm):
+    """The device mesh, the one key the port does not read yet, raises in
+    the Trainer where the JAX package reads it, instead of a run that goes
+    on as if it were unset."""
     from foodrec_tpu_torch.engine.trainer import Trainer
 
-    cfg = _port_config(synth_root, "CIKM_Model", {key: value})
-    if key in ("mesh_shape", "profile_trace_dir"):
-        model = _port_model(cikm[0], cikm[1])
-        with pytest.raises(NotImplementedError, match=key):
-            Trainer(cfg, model)
-    else:
-        with pytest.raises(NotImplementedError, match=key):
-            FoodData(cfg)
+    cfg = _port_config(synth_root, "CIKM_Model", {"mesh_shape": {"data": 2}})
+    model = _port_model(cikm[0], cikm[1])
+    with pytest.raises(NotImplementedError, match="mesh_shape"):
+        Trainer(cfg, model)
+
+
+@pytest.fixture(scope="module")
+def rr_root(synth_root, tmp_path_factory):
+    """A copy of the toy dataset with the recipe-recipe graphs, which the
+    synthetic generator does not write: int pairs in rr_graph.txt and
+    (recipe, recipe, weight) triples in rr_{co,ing,health}_graph.txt."""
+    import shutil
+
+    root = tmp_path_factory.mktemp("rr") / "Synth"
+    shutil.copytree(synth_root[0], root)
+    graph = root / "processed_dataset" / "graph_edge"
+    rng = np.random.default_rng(7)
+    n_items = synth_root[1]["n_items"]
+    pairs = rng.integers(0, n_items, (40, 2))
+    np.savetxt(graph / "rr_graph.txt", pairs, fmt="%d", delimiter="\t")
+    for name in ("rr_co", "rr_ing", "rr_health"):
+        triples = np.column_stack([rng.integers(0, n_items, (30, 2)),
+                                   rng.random(30).round(4)])
+        np.savetxt(graph / f"{name}_graph.txt", triples, fmt="%g")
+    return str(root), synth_root[1]
+
+
+@pytest.mark.parametrize("key,attrs", [
+    ("load_RecipeRecipe_graph", ["rRecipe_triples"]),
+    ("load_RecipeHealth_graph", ["rHealth_triples", "num_health_level"]),
+    ("use_health_level", ["health_level"]),
+    ("load_RecipeRecipeCo_graph", ["rr_co_triples"]),
+    ("load_RecipeRecipeIng_graph", ["rr_ing_triples"]),
+    ("load_RecipeRecipeHealth_graph", ["rr_health_triples"]),
+])
+def test_graph_config_keys_load_as_jax(rr_root, key, attrs):
+    """Each of the JAX package's GraphData flags loads its file into the
+    attributes the JAX package's FoodData sets, with equal values and
+    dtypes; unset, they are absent (num_health_level 0)."""
+    from foodrec_tpu.data.dataset import FoodData as JFoodData
+    from foodrec_tpu_torch.data.dataset import FoodData
+
+    jcfg, _ = make_config(rr_root, model="CIKM_Model",
+                          overrides={key: True, "use_gpu": False})
+    jds = JFoodData(jcfg)
+    ds = FoodData(_port_config(rr_root, "CIKM_Model", {key: True}))
+    for attr in attrs:
+        got, want = getattr(ds, attr), getattr(jds, attr)
+        if isinstance(want, np.ndarray):
+            assert got.dtype == want.dtype and got.shape == want.shape, attr
+            np.testing.assert_array_equal(got, want, err_msg=attr)
+        else:
+            assert got == want, attr
+    plain = FoodData(_port_config(rr_root, "CIKM_Model"))
+    assert plain.num_health_level == 0
+    assert not any(hasattr(plain, a) for a in attrs
+                   if a != "num_health_level")
+
+
+def test_profile_trace_dir_writes_the_trace(synth_root, tmp_path):
+    """`profile_trace_dir`: fit runs epoch 1 (the second) under
+    torch.profiler and writes its chrome trace there; epoch 0 and the
+    other epochs run without it."""
+    import json
+
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    trace_dir = str(tmp_path / "trace")
+    cfg = _port_config(synth_root, "LightGCN", {
+        "profile_trace_dir": trace_dir, "epochs": 3, "eval_step": 3,
+        "train_batch_size": 16})
+    data = _port_data(cfg)
+    trainer = Trainer(cfg, _port_model(cfg, data))
+    traced = []
+    traced_epoch = trainer._traced_epoch
+    trainer._traced_epoch = lambda d: traced.append(d) or traced_epoch(d)
+    trainer.fit(data)
+    assert traced == [trace_dir] and sorted(trainer.train_loss_dict) == [
+        0, 1, 2]
+    assert os.listdir(trace_dir) == ["epoch_1.pt.trace.json"]
+    with open(os.path.join(trace_dir, "epoch_1.pt.trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("calculate_loss" in e.get("name", "") or "aten::" in
+               e.get("name", "") for e in events)
 
 
 def test_spmm_impl_pallas_is_the_kernel(synth_root, cikm):

@@ -402,11 +402,32 @@ def test_dropout_draws_from_the_generator(synth_root, name, extra):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("name", ["LightGCN", "BM3"])
-def test_frozen_modality_tables_raise(synth_root, name):
-    with pytest.raises(NotImplementedError, match="freeze_modality_tables"):
-        _port_model(synth_root, name,
-                    _overrides({"freeze_modality_tables": True}))
+@pytest.mark.parametrize("name,extra", [("LightGCN", {"flagD": [1]}),
+                                        ("BM3", {"dropout": 0.0})])
+def test_frozen_modality_tables_match_jax(synth_root, name, extra):
+    """`freeze_modality_tables: True`: the feature tables are buffers, so
+    the JAX pytree (which leaves them out) maps onto the state_dict; the
+    serving embeddings, the loss parts and every gradient in float32 match
+    the JAX package's frozen model (the float64 certificate is in
+    test_torch_port_options.py)."""
+    from foodrec_tpu_torch.utils.weights import flatten_params
+
+    overrides = _overrides({"freeze_modality_tables": True, **extra})
+    _, _, jmodel, jparams = _jax_model(synth_root, name, overrides)
+    model = _port_model(synth_root, name, overrides, jparams)[2]
+    assert "image_embedding" in dict(model.named_buffers())
+    assert sorted(model.state_dict()) == sorted(flatten_params(jparams))
+    for g, w in zip(model.eval_cache(), jmodel.eval_cache(jparams)):
+        _assert_rel(g.numpy(), np.asarray(w), TOL, "eval_cache")
+    u, p, n = _batch(model.dd, 0)
+    jparts, jgrads = _jax_loss_and_grads(jmodel, jparams, u, p, n)
+    parts, grads = _port_loss_and_grads(model, u, p, n)
+    for i, (a, b) in enumerate(zip(parts, jparts)):
+        _assert_rel(a, b, TOL, f"loss part {i}")
+    jflat = flatten_params(jgrads)
+    assert sorted(jflat) == sorted(grads)
+    for k, g in grads.items():
+        _assert_rel(g.numpy(), jflat[k], GRAD_TOL, f"grad {k}")
 
 
 def test_registry_resolves_the_ported_models():

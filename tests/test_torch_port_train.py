@@ -688,20 +688,47 @@ def test_train_epoch_counts_every_pair(pair):
     assert torch.isfinite(last).all() and float(last.sum()) < float(first.sum())
 
 
-def test_unported_training_options_raise(pair):
+@pytest.mark.parametrize("extra", [
+    {"health_neg_sample": True, "use_health_level": True},
+    {"exact_final_batch": False},
+    {"learner": "sgd"},
+], ids=["health_neg_sample", "padded_final_batch", "sgd"])
+def test_training_options_run(pair, extra):
+    """The options the port once refused run a CIKM_Model epoch: every
+    batch carries its health-stratified negatives (outside the user's
+    positives), or has the full size with the wrapped rows weighted 0, or
+    the step is plain SGD; the loss parts are finite (their values against
+    the JAX package are in test_torch_port_options.py)."""
+    from foodrec_tpu_torch.data.sampling import is_excluded
     from foodrec_tpu_torch.engine.trainer import Trainer
 
-    model = pair["model"]
-    for key, val in (("health_neg_sample", True), ("exact_final_batch", False),
-                     ("learner", "sgd")):
-        cfg = model.config
-        old = cfg[key]
-        cfg[key] = val
-        try:
-            with pytest.raises(NotImplementedError):
-                Trainer(cfg, model)
-        finally:
-            cfg[key] = old
+    _, _, model = _port_model(pair["synth_root"], _overrides(extra))
+    trainer = Trainer(model.config, model)
+    seen = []
+    train_steps = trainer.train_steps
+
+    def recording(batches):
+        batches = list(batches)
+        seen.extend(batches)
+        return train_steps(batches)
+
+    trainer.train_steps = recording
+    before = model.user_embedding.detach().clone()
+    parts = trainer.train_epoch()
+    assert torch.isfinite(parts).all() and len(seen) == trainer.n_batches
+    assert not torch.equal(before, model.user_embedding)
+    if "health_neg_sample" in extra:
+        for u, _, _, more in seen:
+            hn = more["health_neg"]
+            assert hn.dtype == torch.int64 and hn.shape == u.shape
+            assert not bool(is_excluded(trainer._excl, u, hn).any())
+    elif "exact_final_batch" in extra:
+        assert all(len(b[0]) == BATCH_SIZE for b in seen)
+        w = torch.cat([b[3]["weight"] for b in seen])
+        assert int(w.sum()) == trainer.n_train < len(w)
+    else:
+        assert type(trainer.optimizer) is torch.optim.SGD
+        assert all(len(b) == 3 for b in seen)
 
 
 if __name__ == "__main__":
