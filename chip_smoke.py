@@ -60,10 +60,8 @@ clusters), with random weights from seed 999:
      not stopped
   9. the training and data options, through the kernel: CIKM_Model with
      the scalar health level, health-stratified negatives and the padded
-     final batch for one epoch (the negatives' invariants asserted);
-     row-sparse Adam against the dense update on the same 20 batches (loss
-     parts within 1e-5, parameters and moments after, a 20-step profile
-     each way, one row-sparse epoch); 20 steps of sgd, adagrad and rmsprop
+     final batch for one epoch (the negatives' invariants asserted); 20
+     steps of sgd, adagrad and rmsprop
      through the kernel against `segment`; one epoch each of CIKM_Model and
      BM3 with frozen modality tables; LightGCN's fit with
      profile_trace_dir, whose trace must name the kernel
@@ -1742,7 +1740,7 @@ def phase_driver(torch, kernels):
 
 
 # phase 9: the training and data options, through the kernel
-OPTION_STEPS = 20     # steps of the row-sparse and learner comparisons
+OPTION_STEPS = 20     # steps of the learner comparisons
 OPTION_TOL = 1e-5     # their loss parts, relative, at every step
 HEALTH_FLAGS = {"use_health_level_multi_hot": False, "use_health_level": True,
                 "load_RecipeHealth_graph": True, "health_neg_sample": True,
@@ -1877,92 +1875,6 @@ def options_health(torch, kernels):
                 pad_rows=n_pad, peak_gb=peak, launches=launches)
 
 
-def adam_state_diff(torch, ta, tb):
-    """(max |param difference|, max |Adam moment difference|) of two
-    trainers of one model class."""
-    pa = dict(ta.model.named_parameters())
-    pb = dict(tb.model.named_parameters())
-    d_p = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
-    d_m = 0.0
-    for k in pa:
-        sa, sb = ta.optimizer.state[pa[k]], tb.optimizer.state[pb[k]]
-        for key in ("exp_avg", "exp_avg_sq"):
-            d_m = max(d_m, float((sa[key] - sb[key]).abs().max()))
-    return d_p, d_m
-
-
-def share(ops, busy_us, pattern):
-    """(device us, count, share of busy) of the profile lines naming
-    `pattern`."""
-    t = sum(o[0] for o in ops if pattern in o[2])
-    c = sum(o[1] for o in ops if pattern in o[2])
-    return t, c, t / busy_us
-
-
-def options_row_sparse(torch, kernels, data):
-    """(b) CIKM_Model as shipped, from one set of weights, on the same 20
-    batches with row_sparse_table_update True and False: every step's loss
-    parts within OPTION_TOL, the parameters and Adam moments after, a
-    20-step profile each way, and one full row-sparse epoch."""
-    from foodrec_tpu_torch.engine.trainer import Trainer
-
-    tag = "9 row-sparse"
-    trainers = {}
-    for rs in (True, False):
-        cfg = option_config("CIKM_Model", row_sparse_table_update=rs)
-        trainers[rs] = Trainer(cfg, option_model(torch, cfg, data))
-    if not trainers[True].row_sparse_on or trainers[False].row_sparse_on:
-        raise AssertionError(f"{tag}: row_sparse_on")
-    batches = draw_batches(torch, data.device_data, OPTION_STEPS,
-                           trainers[True].train_batch_size, SEED + 9)
-    rows = trainers[True]._row_sparse_rows(batches[0][1], batches[0][2])
-    if sorted(rows) != ["image_embedding", "text_embedding"]:
-        raise AssertionError(f"{tag}: tables {sorted(rows)}")
-    traj = []
-    for batch in batches:
-        ps, pd = (trainers[rs].train_steps([batch]) for rs in (True, False))
-        traj.append(((ps - pd).abs() / pd.abs()).cpu().numpy())
-    worst = np.array(traj).max(axis=0)
-    d_p, d_m = adam_state_diff(torch, trainers[True], trainers[False])
-    log(f"[{tag}] {OPTION_STEPS} steps row-sparse vs dense: worst relative "
-        f"loss-part difference {worst.tolist()}; after them max|param d| "
-        f"{d_p:.3e}, max|Adam moment d| {d_m:.3e} "
-        f"({'bitwise' if d_p == d_m == 0 else 'not bitwise'})")
-    if not (worst <= OPTION_TOL).all():
-        raise AssertionError(f"{tag}: loss parts differ by {worst}")
-    profiles = {}
-    for rs, name in ((False, "dense"), (True, "row-sparse")):
-        prof_batches = draw_batches(torch, data.device_data, PROFILE_STEPS,
-                                    trainers[rs].train_batch_size, SEED + 2)
-        prof = profile_breakdown(
-            torch, lambda: trainers[rs].train_steps(prof_batches), tag,
-            f"{PROFILE_STEPS} {name} steps")
-        if prof is None:
-            profiles[name] = None
-            continue
-        wall, busy, ops = prof
-        idx = share(ops, busy, "indexing_backward_kernel")
-        mta = share(ops, busy, "multi_tensor_apply_kernel")
-        profiles[name] = dict(
-            wall_us=wall, busy_us=busy, busy_share=busy / wall,
-            indexing_backward_share=idx[2],
-            indexing_backward_per_step=idx[1] / PROFILE_STEPS,
-            multi_tensor_adam_share=mta[2])
-        log(f"[{tag}] {name}: busy share {busy / wall:.3f}; "
-            f"indexing_backward_kernel {idx[0]:.0f} us ({idx[2]:.3f} of "
-            f"busy, {idx[1] / PROFILE_STEPS:.1f} a step); multi-tensor Adam "
-            f"kernels {mta[0]:.0f} us ({mta[2]:.3f})")
-    del trainers[False]
-    torch.cuda.empty_cache()
-    trainer = trainers[True]
-    trainer.scheduler.step()
-    wall, launches, _, _, peak = counted_epoch(
-        torch, kernels, trainer, tag, "row-sparse epoch")
-    return dict(worst_rel=worst.tolist(), max_param_diff=d_p,
-                max_moment_diff=d_m, profiles=profiles, epoch_s=wall,
-                peak_gb=peak, launches=launches)
-
-
 def options_learners(torch, kernels, data):
     """(c) OPTION_STEPS steps of sgd, adagrad and rmsprop on CIKM_Model
     through the kernel, dropout 0, the kernel path's launches counted. At
@@ -1990,6 +1902,8 @@ def options_learners(torch, kernels, data):
             raise AssertionError(f"{tag}: impls {list(impls.values())}")
         tk, ts = Trainer(cfg, mk), Trainer(cfg, ms)
         same, free, parts_k = [], [], []
+        hops = mk.n_layers + mk.ui_layers
+        launches = {"spmm_csr": 0, "spmm_csr_bwd": 0}
         for batch in batches:
             mp.load_state_dict(mk.state_dict())
             with torch.no_grad():
@@ -1997,19 +1911,16 @@ def options_learners(torch, kernels, data):
             reset_launches(kernels)
             pk = tk.train_steps([batch])
             torch.cuda.synchronize()
-            if dict(kernels.launches) != {
-                    "spmm_csr": mk.n_layers + mk.ui_layers,
-                    "spmm_csr_bwd": mk.n_layers + mk.ui_layers}:
-                raise AssertionError(f"{tag}: {learner} launches "
-                                     f"{kernels.launches}")
+            step = dict(kernels.launches)
+            if step != {"spmm_csr": hops, "spmm_csr_bwd": hops}:
+                raise AssertionError(f"{tag}: {learner} launches {step}")
+            for k in launches:
+                launches[k] += step[k]
             ps = ts.train_steps([batch])
             same.append(((pk - pp).abs() / pp.abs()).cpu().numpy())
             free.append(((pk - ps).abs() / ps.abs()).cpu().numpy())
             parts_k.append(pk.cpu().numpy())
         same, free = np.array(same).max(axis=0), np.array(free).max(axis=0)
-        hops = mk.n_layers + mk.ui_layers
-        launches = {"spmm_csr": hops * OPTION_STEPS,
-                    "spmm_csr_bwd": hops * OPTION_STEPS}
         log(f"[{tag}] {learner} ({type(tk.optimizer).__name__}): "
             f"{OPTION_STEPS} steps through the kernel, {launches}; segment "
             f"at the same parameters, worst relative loss-part difference "
@@ -2122,8 +2033,6 @@ def phase_options(torch, kernels, data, trainable):
     synthetic through the kernel; `data` is phase 4's CIKM_Model FoodData."""
     out = {"health": options_health(torch, kernels)}
     torch.cuda.empty_cache()
-    out["row_sparse"] = options_row_sparse(torch, kernels, data)
-    torch.cuda.empty_cache()
     out["learners"] = options_learners(torch, kernels, data)
     out["frozen"] = options_frozen(torch, kernels, data, trainable)
     out["trace"] = options_trace(torch, kernels, data)
@@ -2209,7 +2118,6 @@ def main():
     fwd_by_path["sample test"] = driver["sample"]["launches"]
     option_paths = [
         ("health padded train_epoch", options["health"]["launches"]),
-        ("row_sparse train_epoch", options["row_sparse"]["launches"]),
         *((f"{name} {OPTION_STEPS} steps", o["launches"])
           for name, o in options["learners"].items()),
         *((f"frozen {name} train_epoch", o["launches"])

@@ -29,11 +29,11 @@ Semantics kept from the JAX package:
     index in the epoch is a multiple of `beta`, a step on alpha1 * g, the
     batch replayed at the new parameters with the same dropout draws, and a
     step on -alpha2 * g2
-  * row-sparse Adam (`row_sparse_table_update`, engine/sparse_adam.py) for
-    the tables a model names (CIKM_Model's modality tables): on with True,
-    with `auto` (null) per table where it has more than 64x the batch's
-    rows; Mirror Gradient, clipping, the cosine probe, weight decay and any
-    learner but Adam keep the dense update (trainer.py:215-240)
+  * `row_sparse_table_update` is accepted and every update is the dense
+    one: the JAX package's row-sparse Adam (trainer.py:215-240) gives the
+    dense update's results bit for bit, and on the H100 a row-sparse
+    update of CIKM_Model's modality tables took more device time than the
+    dense one (PERF.md §7); `True` says so in the log
   * the cosine probe (`calcu_cos_similarity`, utils/diagnostics.py) summed
     over the epoch and logged; a model without same-width id, text and
     image tables (the six shipped ones) gives zeros, as in JAX
@@ -72,10 +72,6 @@ from foodrec_tpu_torch.data.sampling import (
 )
 from foodrec_tpu_torch.engine import checkpoint as ckpt
 from foodrec_tpu_torch.engine.evaluator import evaluate_by_user
-from foodrec_tpu_torch.engine.sparse_adam import (
-    apply_update_row_sparse,
-    supports_row_sparse,
-)
 from foodrec_tpu_torch.engine.topk_evaluator import (
     TopKEvaluator,
     full_sort_topk,
@@ -210,14 +206,10 @@ class Trainer:
         # the cosine probe, summed over the epoch (trainer.py:212-214)
         self.probe_on = bool(config["calcu_cos_similarity"])
         self._epoch_cos_sim = None
-        # row-sparse Adam where no guard forces the dense update
-        # (trainer.py:228-240)
-        rs_cfg = config["row_sparse_table_update"]
-        self.rs_auto = rs_cfg is None or rs_cfg == "auto"
-        self.row_sparse_on = ((self.rs_auto or bool(rs_cfg)) and not mg
-                              and not self.clip_grad_norm
-                              and not self.probe_on and not weight_decay
-                              and supports_row_sparse(self.optimizer))
+        if config["row_sparse_table_update"] is True:
+            self.logger.info(
+                "row_sparse_table_update: the dense Adam update runs (the "
+                "same results; row-sparse was slower on the H100)")
 
         dev = model.device
         self._train_u = torch.as_tensor(dd.train_u).to(dev, torch.int64)
@@ -262,14 +254,9 @@ class Trainer:
             if self.mg and self.epoch_batch % self.beta == 0:
                 parts, g_probe = self._mirror_step(u, pos, neg, weight)
             else:
-                rows = self._row_sparse_rows(pos, neg)
-                if rows:
-                    parts, g_probe = self._row_sparse_step(
-                        u, pos, neg, weight, rows), None
-                else:
-                    parts = self._backward(u, pos, neg, weight)
-                    g_probe = self._probe_grads()
-                    self._update()
+                parts = self._backward(u, pos, neg, weight)
+                g_probe = self._probe_grads()
+                self._update()
             if self.probe_on:
                 self._probe(g_probe)
             self.epoch_batch = (self.epoch_batch + 1) % self.n_batches
@@ -318,34 +305,6 @@ class Trainer:
         self._backward(u, pos, neg, weight)
         self._update(-self.alpha2)
         return parts, g_probe
-
-    def _row_sparse_rows(self, pos, neg):
-        """{table name: row ids} of this batch's row-sparse tables; empty
-        where the dense update runs (trainer.py:234-238, 287-290): `auto`
-        keeps a table only where n_rows > 64 x the batch's rows."""
-        if not self.row_sparse_on:
-            return {}
-        rows = self.model.row_sparse_tables(pos, neg)
-        if self.rs_auto:
-            params = dict(self.model.named_parameters())
-            rows = {n: r for n, r in rows.items()
-                    if params[n].shape[0] > 64 * r.shape[0]}
-        return rows
-
-    def _row_sparse_step(self, u, pos, neg, weight, rows):
-        """One Adam step that differentiates the loss with respect to the
-        gathered rows of the tables in `rows`, never the tables
-        (trainer.py:291-302)."""
-        params = dict(self.model.named_parameters())
-        tables = {n: (params[n], r) for n, r in rows.items()}
-        gathered = {n: params[n].detach()[r].requires_grad_()
-                    for n, r in rows.items()}
-        with self.model.gathered_rows(gathered):
-            parts = self._backward(u, pos, neg, weight)
-        self._set_lr()
-        apply_update_row_sparse(self.optimizer, tables, gathered)
-        self.n_updates += 1
-        return parts
 
     def _probe_grads(self):
         """The probe's (id, text, image) gradients, copied before the

@@ -22,8 +22,6 @@ and evaluation splits into
                                              item list (full-catalog top-k)
 """
 
-import contextlib
-
 import numpy as np
 import torch
 from torch import nn
@@ -54,7 +52,6 @@ class GeneralRecommender(nn.Module):
         self.n_users = dataset.n_users
         self.n_items = dataset.n_items
         self.embedding_size = config["embedding_size"]
-        self._gathered = {}  # rows the trainer gathered (gathered_rows)
         # modality features as host float32 tables
         # (abstract_recommender.py:84-91); a model that trains them makes
         # them parameters
@@ -62,34 +59,6 @@ class GeneralRecommender(nn.Module):
         if config["is_multimodal_model"] and not config["end2end"]:
             self.v_feat = np.asarray(self.dd.img, dtype=np.float32)
             self.t_feat = np.asarray(self.dd.txt, dtype=np.float32)
-
-    # -- row-sparse table contract (foodrec_tpu/models/base.py:110-130) ----
-    def row_sparse_tables(self, pos_item, neg_item):
-        """Parameter tables whose per-step gradient is nonzero only at a
-        known row set: {param name: row ids [K]}. The trainer gathers those
-        rows outside autograd, differentiates the loss with respect to the
-        gathered [K, D] rows and applies the row-sparse Adam update
-        (engine/sparse_adam.py), so no table-sized gradient is made. A model
-        that opts in reads those tables through `gather_rows`. Default: no
-        tables (the dense path)."""
-        return {}
-
-    @contextlib.contextmanager
-    def gathered_rows(self, rows):
-        """While it is open, `gather_rows(name, idx)` returns `rows[name]`,
-        the rows the trainer gathered for exactly this `idx`."""
-        self._gathered = rows
-        try:
-            yield
-        finally:
-            self._gathered = {}
-
-    def gather_rows(self, name, idx):
-        """`getattr(self, name)[idx]`, unless the trainer gathered this
-        table's rows (the row-sparse path)."""
-        if name in self._gathered:
-            return self._gathered[name]
-        return getattr(self, name)[idx]
 
     def diagnostic_embeddings(self, tree):
         """The same-width (id, text, image) tables of the cosine probe

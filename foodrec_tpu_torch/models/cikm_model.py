@@ -18,11 +18,11 @@ The parameters are named like the JAX package's pytree (`encoder.0.in_proj_w`,
 `utils/weights.py` carries them over one to one. The image and text tables
 are trainable parameters, as the reference trains them, unless
 `freeze_modality_tables: True` keeps them as buffers, out of the optimizer
-(the JAX package's opt-in, cikm_model.py:132-135). They opt into the
-row-sparse Adam path (`row_sparse_tables`). With `use_health_level_multi_hot:
-False` the health head's width is the dataset's `num_health_level` (0
-unless `load_RecipeHealth_graph` is set) and its target is all zeros, as in
-the JAX package (cikm_model.py:83-86, 120-122).
+(the JAX package's opt-in, cikm_model.py:132-135). With
+`use_health_level_multi_hot: False` the health head's width is the
+dataset's `num_health_level` (0 unless `load_RecipeHealth_graph` is set)
+and its target is all zeros, as in the JAX package (cikm_model.py:83-86,
+120-122).
 
 Faithful quirks kept from the JAX package:
   * forward()'s propagated ingredient output is not used by the loss, which
@@ -147,14 +147,6 @@ class CIKM_Model(GeneralRecommender):
             self.image_embedding = nn.Parameter(img.to(self.device))
             self.text_embedding = nn.Parameter(txt.to(self.device))
 
-    def row_sparse_tables(self, pos_item, neg_item):
-        """Both modality tables at the batch's [pos; neg] rows, unless they
-        are frozen (cikm_model.py:165-177)."""
-        if self.freeze_mm:
-            return {}
-        items2 = torch.cat([pos_item, neg_item])
-        return {"image_embedding": items2, "text_embedding": items2}
-
     def forward(self):
         ingre = self.ingre_embedding
         ir_ego = torch.cat([self.item_embedding, ingre[:-1]], dim=0)
@@ -189,10 +181,8 @@ class CIKM_Model(GeneralRecommender):
 
         # multimodal queries (cikm_model.py:240-246)
         mm_query = torch.stack(
-            [linear_apply(self.image_trs,
-                          self.gather_rows("image_embedding", items2)),
-             linear_apply(self.text_trs,
-                          self.gather_rows("text_embedding", items2))],
+            [linear_apply(self.image_trs, self.image_embedding[items2]),
+             linear_apply(self.text_trs, self.text_embedding[items2])],
             dim=1)                                            # [2B, 2, D]
         item_health = target_attention_apply(
             self.mm_target_atten, mm_query, encoded, self.nhead,

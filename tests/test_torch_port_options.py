@@ -623,3 +623,108 @@ def test_frozen_tables_float64_matches_jax(synth_root, name, extra):
     worst_parts, worst_grads = _certify(jmodel, jparams, model, batches)
     assert worst_parts <= X64_TOL and worst_grads <= X64_TOL, \
         (worst_parts, worst_grads)
+
+
+# ---------------------------------------------------------------------------
+# row_sparse_table_update
+# ---------------------------------------------------------------------------
+
+
+def test_row_sparse_key_lockstep_float64_matches_jax_row_sparse(
+        synth_root, monkeypatch):
+    """`row_sparse_table_update: True` on CIKM_Model: one epoch of the JAX
+    package's jit epoch, which takes its row-sparse Adam path for both
+    modality tables, replayed through the port, which runs the dense
+    update: the loss parts and every parameter within 1e-9 relative
+    (float64), the encoder's key bias as said below. The lr is 2^-10, as
+    in test_padded_final_batch_lockstep_float64."""
+    import foodrec_tpu.engine.trainer as jtrainer_mod
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.utils.weights import flatten_params
+
+    traced = []
+    row_sparse_update = jtrainer_mod.apply_update_row_sparse
+
+    def spy(*args, **kwargs):
+        traced.append(sorted(args[-1]))   # the step's row-sparse tables
+        return row_sparse_update(*args, **kwargs)
+
+    monkeypatch.setattr(jtrainer_mod, "apply_update_row_sparse", spy)
+    overrides = {"train_batch_size": BATCH_SIZE, "exact_final_batch": False,
+                 "learning_rate": 2.0 ** -10,
+                 "attention_probs_dropout_prob": 0.0,
+                 "row_sparse_table_update": True}
+    jcfg, _, jmodel, jparams = _jax_model(synth_root, "CIKM_Model", overrides)
+    cfg, _, model = _port_model(synth_root, "CIKM_Model", overrides, jparams,
+                                dtype=torch.float64)
+    trainer = Trainer(cfg, model)
+    with jax.enable_x64(True):
+        jtrainer = jtrainer_mod.Trainer(jcfg, jmodel)
+        params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), jparams)
+        opt_state = jtrainer.optimizer.init(params)
+        key = jax.random.PRNGKey(11)
+        batches = _jax_padded_batches(jtrainer, key)
+        params, _, jparts = jtrainer._epoch_fn(params, opt_state, key)
+        params = jax.device_get(params)
+        jparts = np.asarray(jparts)
+    assert traced and all(t == ["image_embedding", "text_embedding"]
+                          for t in traced), traced
+    parts = trainer.train_steps(
+        (*(torch.as_tensor(a, dtype=torch.int64) for a in b[:3]),
+         {"weight": torch.as_tensor(b[3], dtype=torch.float32)})
+        for b in batches)
+    assert _rel_err(parts.numpy(), jparts) <= X64_TOL
+    state = model.state_dict()
+    for k, v in flatten_params(params).items():
+        got = state[k].numpy()
+        if k.endswith("in_proj_b"):
+            # the key part's gradient is zero in exact arithmetic (the
+            # softmax ignores a shift shared by all keys), so both packages
+            # move it from 0 by Adam-scaled rounding noise only: it stays
+            # within a millionth of one Adam step (lr) of 0, and the query
+            # and value parts are held to the bar
+            d = len(v) // 3
+            assert max(np.abs(got[d:2 * d]).max(), np.abs(
+                v[d:2 * d]).max()) <= 1e-6 * cfg["learning_rate"], k
+            got, v = (np.concatenate([a[:d], a[2 * d:]]) for a in (got, v))
+        assert _rel_err(got, v) <= X64_TOL, k
+
+
+@pytest.mark.parametrize("value", [True, False, None, "auto"],
+                         ids=["true", "false", "null", "auto"])
+def test_row_sparse_key_is_accepted_and_trains_as_dense(synth_root, caplog,
+                                                        value):
+    """Every value of `row_sparse_table_update` builds the trainer and
+    takes the dense update: three steps from the same weights on the same
+    batches give the parameters and Adam state of a run with `False`, bit
+    for bit; `True` says in the log that the dense update runs."""
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    def three_steps(v):
+        model = _port_model(synth_root, "CIKM_Model", {
+            "train_batch_size": BATCH_SIZE, "seed": 999,
+            "row_sparse_table_update": v})[2]
+        trainer = Trainer(model.config, model)
+        assert type(trainer.optimizer) is torch.optim.Adam
+        trainer.train_steps(
+            tuple(torch.as_tensor(a, dtype=torch.int64) for a in
+                  _padded_batch(model.dd, s, b=BATCH_SIZE, n_pad=0)[:3])
+            for s in (0, 1, 2))
+        return trainer
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with caplog.at_level("INFO"):
+            got = three_steps(value)
+        assert ("dense Adam update runs" in caplog.text) == (value is True)
+        want = three_steps(False)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    sg, sw = got.model.state_dict(), want.model.state_dict()
+    assert all(torch.equal(sg[k], sw[k]) for k in sw)
+    og, ow = (t.optimizer.state_dict()["state"] for t in (got, want))
+    assert sorted(og) == sorted(ow)
+    for i in ow:
+        for key, v in ow[i].items():
+            assert torch.equal(v, og[i][key]), (i, key)
