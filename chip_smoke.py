@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # all phases
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
+    python3 chip_smoke.py --mesh-only     # phases 1, 2 and 10
 
 Drives the port's serving and training paths for CIKM_Model at full width
 (embedding 64, 2 recipe-ingredient hops + 1 user-item hop, a 2-layer post-LN
@@ -65,6 +66,19 @@ clusters), with random weights from seed 999:
      through the kernel against `segment`; one epoch each of CIKM_Model and
      BM3 with frozen modality tables; LightGCN's fit with
      profile_trace_dir, whose trace must name the kernel
+ 10. scale-out (`mesh_shape` through torch.distributed), in spawned rank
+     groups on the one card, each with a deadline: (a) one NCCL rank
+     started as torchrun starts it, `runner.main` for one CIKM_Model
+     epoch (launches asserted), its checkpoint reloaded into one process,
+     20 SGD steps against one process (bitwise); (b) {data: 2} and (c)
+     {model: 2} over gloo, two ranks sharing the card: CIKM_Model, BM3,
+     SCHGN and CLUSSL (its prototype tables row-sharded), 20 SGD steps
+     each, every step's reduced gradient against one process's at the same
+     parameters, the trajectory against one process's and against a run
+     one rounding away; CIKM_Model's full-sort test through
+     distributed_full_sort_topk, equal ids and metrics; which collectives
+     gloo runs on CUDA tensors; (d) dryrun_multichip(4) over gloo. Each
+     rank's launches are summed into the record
 
 Any failed check raises and the script exits non-zero. The line before the
 last is the kernels' JSON record; the last line is
@@ -437,14 +451,9 @@ def restore_propagators(model, old):
         setattr(model, name, prop)
 
 
-def phase_serving(torch, kernels, spmm):
-    from foodrec_tpu_torch.config import Config
+def ensure_dataset():
+    """The Foodcom-scale synthetic under DATA_ROOT, generated once."""
     from foodrec_tpu_torch.data import synthetic
-    from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
-    from foodrec_tpu_torch.data.device import DeviceData
-    from foodrec_tpu_torch.engine.topk_evaluator import full_sort_topk
-    from foodrec_tpu_torch.engine.trainer import Trainer
-    from foodrec_tpu_torch.models import get_model
 
     t0 = time.perf_counter()
     base = os.path.join(DATA_ROOT, DATASET)
@@ -452,6 +461,17 @@ def phase_serving(torch, kernels, spmm):
                                        "_GEN_COMPLETE")):
         synthetic.generate(base, **FOODCOM_SCALE)
         log(f"[4 serve] generated {DATASET} in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_serving(torch, kernels, spmm):
+    from foodrec_tpu_torch.config import Config
+    from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
+    from foodrec_tpu_torch.data.device import DeviceData
+    from foodrec_tpu_torch.engine.topk_evaluator import full_sort_topk
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.models import get_model
+
+    ensure_dataset()
     t0 = time.perf_counter()
     cfg = Config("CIKM_Model", DATASET, {
         "data_path": DATA_ROOT + "/", "seed": SEED,
@@ -2040,6 +2060,567 @@ def phase_options(torch, kernels, data, trainable):
     return out
 
 
+# phase 10: scale-out on the one card. Rank groups are spawned processes
+# (foodrec_tpu_torch/parallel/spawn.py) on the cached Foodcom-scale data;
+# two or four ranks share the card over gloo (NCCL refuses two ranks on one
+# card), one rank runs NCCL through torchrun's environment.
+MESH_STEPS = 20        # SGD steps of each mesh comparison
+MESH_TIMEOUT = 300     # s a rank group may run before it is ended
+MESH_ROOT = os.path.join(ROOT, "build", "mesh")
+# the JAX package's tests/test_mesh.py bars: loss parts, then the parameters'
+# global relative L2 and max |delta|; and the update's relative L2
+# (|theta_mesh - theta_alone| / |theta_alone - theta_0|), which a sharding
+# fault moves by O(1) even where the parameters barely move
+MESH_PART_RTOL, MESH_REL_L2, MESH_MAX_ABS = 1e-4, 1e-4, 1e-3
+MESH_UPDATE_REL = 1e-3
+MESH_FLOOR_FACTOR = 10
+# A reduced gradient against one process's at the same parameters, at every
+# step: a fault detector. A shard dropped, counted twice or scaled wrong
+# moves the whole gradient, or its leaves, by 0.1-1 of their size; the
+# batch's sums in another order (two halves, each through its own GEMMs)
+# move CIKM_Model's by up to 2.0e-4 in relative L2 and a leaf's max |d| by
+# 1.1e-4 of its largest entry (its modality path normalizes over two rows;
+# measured on an H100 80GB HBM3 at 700 W). The exactness of the semantics
+# is the float64 tests' (tests/test_torch_port_mesh.py, 1e-9). A key bias,
+# zero in exact arithmetic, is held to its query bias's scale.
+MESH_GRAD_L2, MESH_GRAD_LEAF = 1e-2, 1e-2
+# The 2-rank trajectories take SGD at this lr. CIKM_Model's trajectory is
+# chaotic in float32 even so: its health BCE sums 6,144 terms, so a step
+# moves an element a lot and a rounding difference about doubles a step. On
+# an H100 80GB HBM3 at 700 W, {data: 2} against one process read loss parts
+# 4.95e-3 apart by step 19 at the shipped lr 0.002 and 9.0e-3 at 1e-4,
+# while two runs alone one rounding apart read 1.05e-2 at 1e-4 (sgd's
+# kernel and `segment` paths part so too, phase 9). So each trajectory is
+# also run alone from parameters one rounding away (the floor), and a bar
+# that the floor passes holds the mesh to MESH_FLOOR_FACTOR times it.
+MESH_LR = 1e-4
+# CLUSSL from the k-means centers: its 2,000-row prototype tables (2048-d
+# image, 512-d text) are the ones JAX's rule row-shards at model 2
+CLUSSL_CENTER = {"use_center_embedding": True}
+_MESH_DATA = {}
+
+
+def mesh_data(name, **extra):
+    """(config, FoodData) of `name` through the kernel, weights seed SEED;
+    the data loaded once a model per process."""
+    from foodrec_tpu_torch.data.dataset import FoodData
+    from foodrec_tpu_torch.data.device import DeviceData
+
+    cfg = option_config(name, **extra)
+    if name not in _MESH_DATA:
+        data = FoodData(cfg)
+        data.device_data = DeviceData.from_food_data(data)
+        _MESH_DATA[name] = data
+    return cfg, _MESH_DATA[name]
+
+
+def model_hops(model):
+    return (model.n_layers + model.ui_layers
+            if type(model).__name__ == "CIKM_Model"
+            else sum(zoo_hops(model).values()))
+
+
+def mesh_steps(torch, kernels, name, mesh_shape, extra=None, start=False,
+               twin=False, perturb=False):
+    """MESH_STEPS SGD steps of `name` on its trainer's first batches, under
+    mesh_shape (None: this process alone), launches counted (one forward
+    and one backward a hop a step asserted): loss parts [steps, parts],
+    the whole state on the host (and the one before the steps, with
+    `start`), launches, row-sharded tables, s. `perturb` scales every
+    parameter by 1 + 2^-23 n (n standard normal, seed SEED) first: a run
+    that differs from the plain one by rounding. `twin`: rank 0 holds a
+    model without the mesh, loads the mesh's parameters before each step,
+    computes that step's gradient on the same global batch with the same
+    draws, and the mesh's reduced gradient is held to it within
+    MESH_GRAD_L2 and MESH_GRAD_LEAF (the worst of each returned as
+    grad_l2 and grad_err)."""
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    cfg, data = mesh_data(name, learner="sgd", mesh_shape=mesh_shape,
+                          **(extra or {}))
+    model = option_model(torch, cfg, data)
+    if perturb:
+        gen = torch.Generator().manual_seed(SEED)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + 2.0 ** -23 * torch.randn(
+                    p.shape, generator=gen).to(p.device))
+    trainer = Trainer(cfg, model)
+    shadow = None
+    if twin and trainer.mesh.rank == 0:
+        cfg1, _ = mesh_data(name, learner="sgd", mesh_shape=None,
+                            **(extra or {}))
+        shadow = Trainer(cfg1, option_model(torch, cfg1, data))
+    state0 = trainer._host_snapshot() if start else None
+    perm = trainer._epoch_perm()
+    trainer.epoch_batch = 0
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    parts, grad_err, grad_l2 = [], 0.0, 0.0
+    for step, b in enumerate(trainer._batches(perm, 0, MESH_STEPS)):
+        if twin:
+            whole = trainer.model.full_state_dict()  # a collective
+        if shadow is not None:
+            # the twin's launches compare, they are not the mesh's path
+            before = dict(kernels.launches)
+            shadow.model.load_state_dict(whole)
+            shadow.generator.set_state(trainer.generator.get_state())
+            shadow._backward(*b)
+            for k, v in before.items():
+                kernels.launches[k] = v
+        parts.append(trainer.train_steps([b]))
+        if shadow is not None:
+            want = {n: q.grad for n, q in shadow.model.named_parameters()}
+            sq_d = sq_g = 0.0
+            for n, p in trainer.model.named_parameters():
+                g = want[n]
+                scale = want[n.replace("k_b", "q_b")] if n.endswith(
+                    "k_b") else g
+                if n in trainer.model.row_shards:
+                    first = trainer.model.row_shards[n][0]
+                    g = g[first:first + p.shape[0]]
+                d = (p.grad - g).double()
+                sq_d += float((d * d).sum())
+                sq_g += float((g.double() ** 2).sum())
+                top = float(scale.abs().max())
+                rel = float(d.abs().max()) / top if top > 0 else float(
+                    d.abs().max())
+                if not rel <= MESH_GRAD_LEAF:
+                    raise AssertionError(
+                        f"{name} {mesh_shape} step {step} gradient {n}: "
+                        f"{rel:.3e} of its largest entry")
+                grad_err = max(grad_err, rel)
+            l2 = (sq_d / sq_g) ** 0.5 if sq_g > 0 else sq_d ** 0.5
+            if not l2 <= MESH_GRAD_L2:
+                raise AssertionError(f"{name} {mesh_shape} step {step}: the "
+                                     f"gradient's relative L2 {l2:.3e}")
+            grad_l2 = max(grad_l2, l2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del shadow
+    launches = dict(kernels.launches)
+    hops = model_hops(model)
+    want = {"spmm_csr": hops * MESH_STEPS, "spmm_csr_bwd": hops * MESH_STEPS}
+    if launches != want:
+        raise AssertionError(f"{name} {mesh_shape}: launches {launches}, "
+                             f"expected {want}")
+    return dict(parts=torch.stack(parts).cpu().numpy(),
+                state=trainer._host_snapshot(), start=state0,
+                launches=launches, sharded=sorted(model.row_shards), s=secs,
+                grad_err=grad_err, grad_l2=grad_l2)
+
+
+def trajectory_gap(torch, got, want):
+    """(loss parts' worst relative difference, parameters' relative L2 and
+    max |delta|, the update's relative L2, bitwise) of two runs of
+    mesh_steps; `want` holds its start, and `got` its own where it started
+    elsewhere (the rounding floor's run): the updates are then compared."""
+    parts_rel = float(np.max(np.abs(got["parts"] - want["parts"])
+                             / np.maximum(np.abs(want["parts"]), 1e-30)))
+    keys = sorted(want["state"])
+    if sorted(got["state"]) != keys:
+        raise AssertionError("the runs' leaves differ")
+    diff = torch.cat([(got["state"][k].double() - want["state"][k].double())
+                      .ravel() for k in keys])
+    ref = torch.cat([want["state"][k].double().ravel() for k in keys])
+    rel_l2 = float(diff.norm() / ref.norm())
+    max_abs = float(diff.abs().max())
+    moved = torch.cat([(want["state"][k].double()
+                        - want["start"][k].double()).ravel() for k in keys])
+    if got["start"] is not None:
+        diff_update = diff - torch.cat([
+            (got["start"][k].double() - want["start"][k].double()).ravel()
+            for k in keys])
+    else:
+        diff_update = diff
+    update_rel = float(diff_update.norm() / moved.norm())
+    bitwise = all(torch.equal(got["state"][k], want["state"][k]) for k in keys)
+    return parts_rel, rel_l2, max_abs, update_rel, bitwise, moved
+
+
+def mesh_compare(torch, tag, got, want, floor=None):
+    """The mesh run against the run alone within the JAX package's bars;
+    returns the numbers and whether every leaf is bitwise equal. `floor`,
+    a run alone from parameters one rounding away, says how far two
+    correct float32 runs part on this trajectory: printed beside."""
+    parts_rel, rel_l2, max_abs, update_rel, bitwise, moved = trajectory_gap(
+        torch, got, want)
+    base = None
+    if floor is not None:
+        base = trajectory_gap(torch, floor, want)[:4]
+        log(f"[10 mesh] {tag}: two runs alone one rounding apart part by "
+            f"loss parts {base[0]:.3e}, parameters relative L2 "
+            f"{base[1]:.3e}, max |delta| {base[2]:.3e}, update {base[3]:.3e}")
+    log(f"[10 mesh] {tag}: {MESH_STEPS} SGD steps against one process: "
+        f"loss parts worst relative {parts_rel:.3e}, parameters relative L2 "
+        f"{rel_l2:.3e}, max |delta| {max_abs:.3e}, update relative L2 "
+        f"{update_rel:.3e} (the update's L2 {float(moved.norm()):.3e}), "
+        f"bitwise {bitwise}; {got['s']:.3f} s (alone {want['s']:.3f} s)")
+    bars = (MESH_PART_RTOL, MESH_REL_L2, MESH_MAX_ABS, MESH_UPDATE_REL)
+    gaps = (parts_rel, rel_l2, max_abs, update_rel)
+    # a bar that two runs one rounding apart already exceed cannot tell a
+    # fault from float32 rounding: there the mesh is held to
+    # MESH_FLOOR_FACTOR times that floor instead
+    held = [b if base is None or base[i] <= b else MESH_FLOOR_FACTOR * base[i]
+            for i, b in enumerate(bars)]
+    if held != list(bars):
+        log(f"[10 mesh] {tag}: the rounding floor passes the bars "
+            f"{bars}: held to {held}")
+    if any(g > h for g, h in zip(gaps, held)):
+        raise AssertionError(f"{tag}: the runs part by {gaps}, bars {held}")
+    return dict(parts_rel=parts_rel, rel_l2=rel_l2, max_abs=max_abs,
+                update_rel=update_rel, bitwise=bitwise, s=got["s"],
+                alone_s=want["s"], rounding_floor=base,
+                grad_err=got.get("grad_err"), grad_l2=got.get("grad_l2"))
+
+
+def rank_setup(torch):
+    """A rank's matmul settings, as phase 1 sets the parent's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def mesh_rank_runner(rank, config_dir, workdir):
+    """(a), one NCCL rank: runner.main for CIKM_Model, one epoch, with
+    mesh_shape {data: 1} from a dataset yaml; its best checkpoint reloaded
+    into a model with no mesh (equal test metrics); MESH_STEPS SGD steps
+    under the mesh and alone."""
+    import torch
+
+    rank_setup(torch)
+    from foodrec_tpu_torch import config as config_mod
+    from foodrec_tpu_torch import runner
+    from foodrec_tpu_torch.engine import quick_start as qs
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.ops import _kernels
+
+    shipped = config_mod._CONFIG_DIR
+    config_mod._CONFIG_DIR = config_dir
+    os.chdir(workdir)
+    trainers, epoch = [], {}
+    get_trainer = qs.get_trainer
+
+    def recording_get_trainer():
+        def make(*args, **kwargs):
+            trainer = get_trainer()(*args, **kwargs)
+            train_epoch = trainer.train_epoch
+
+            def counted_epoch():
+                before = dict(_kernels.launches)
+                t0 = time.perf_counter()
+                parts = train_epoch()
+                torch.cuda.synchronize()
+                epoch["s"] = time.perf_counter() - t0
+                epoch["launches"] = {k: v - before[k] for k, v in
+                                     _kernels.launches.items()}
+                return parts
+
+            trainer.train_epoch = counted_epoch
+            trainers.append(trainer)
+            return trainer
+
+        return make
+
+    qs.get_trainer = recording_get_trainer
+    reset_launches(_kernels)
+    t0 = time.perf_counter()
+    try:
+        hyper, valid, test = runner.main([
+            "-m", "CIKM_Model", "-d", DATASET, "--data_path", DATA_ROOT + "/",
+            "--epochs", "1", "--neg_sample_num",
+            str(FOODCOM_SCALE["neg_num"])])
+    finally:
+        qs.get_trainer = get_trainer
+        config_mod._CONFIG_DIR = shipped
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    (trainer,) = trainers
+    mesh = trainer.mesh
+    mesh_info = dict(shape=mesh.shape, backend=mesh.backend,
+                     device=str(mesh.device))
+    n_evals = 2  # valid after the epoch, then the test
+    hops = trainer.model.n_layers + trainer.model.ui_layers
+    want_epoch = {"spmm_csr": hops * trainer.n_batches,
+                  "spmm_csr_bwd": hops * trainer.n_batches}
+    if epoch["launches"] != want_epoch:
+        raise AssertionError(f"(a) epoch launches {epoch['launches']}, "
+                             f"expected {want_epoch}")
+    ckpts = os.listdir("ckp")
+    logs = os.listdir("log")
+    if len(ckpts) != 1 or len(logs) != 1:
+        raise AssertionError(f"(a) checkpoints {ckpts}, logs {logs}")
+    del trainer, trainers
+    torch.cuda.empty_cache()
+
+    cfg, data = mesh_data("CIKM_Model")
+    fresh = option_model(torch, cfg, data)
+    fresh.load_state_dict(Trainer.load_checkpoint(os.path.join("ckp",
+                                                              ckpts[0])))
+    reloaded = Trainer(cfg, fresh).evaluate(data.device_data.eval_test,
+                                            is_test=True)
+    if reloaded != test:
+        raise AssertionError(f"(a) reloaded test metrics {reloaded} != the "
+                             f"run's {test}")
+    del fresh
+    torch.cuda.empty_cache()
+    steps = mesh_steps(torch, _kernels, "CIKM_Model", {"data": 1})
+    alone = mesh_steps(torch, _kernels, "CIKM_Model", None, start=True)
+    return dict(hyper=hyper, test=test, cli_s=cli_s, epoch=epoch,
+                launches=launches, n_evals=n_evals, mesh=mesh_info,
+                checkpoint=ckpts[0], steps=steps, alone=alone)
+
+
+def mesh_rank_steps(rank, cases):
+    """(b) and CLUSSL of (c): MESH_STEPS SGD steps of each (name, mesh,
+    extra) on this rank; every rank's launches, rank 0's parts and state."""
+    import torch
+
+    from foodrec_tpu_torch.ops import _kernels
+
+    out = {}
+    rank_setup(torch)
+    for name, shape, extra in cases:
+        r = mesh_steps(torch, _kernels, name, shape, extra, twin=True)
+        out[name] = r if rank == 0 else {"launches": r["launches"]}
+        torch.cuda.empty_cache()
+    return out
+
+
+def full_sort_ids(torch, trainer):
+    """(top-k ids [U, k] of every user, (score, metrics)) of the trainer's
+    full-sort test eval; the ids through distributed_full_sort_topk under a
+    `model` axis, as `_valid_full_sort` takes them."""
+    import functools
+
+    from foodrec_tpu_torch.engine.topk_evaluator import (
+        TopKEvaluator,
+        distributed_full_sort_topk,
+        full_sort_topk,
+    )
+
+    model = trainer.model
+    k = max(TopKEvaluator(trainer.config).topk)
+    sweep = full_sort_topk
+    if trainer.mesh is not None:
+        sweep = functools.partial(distributed_full_sort_topk, trainer.mesh)
+    with torch.no_grad():
+        ids = sweep(functools.partial(model.score_items, model.eval_cache()),
+                    list(range(model.dataset.num_users)),
+                    model.dataset.num_items, k,
+                    user_batch=min(trainer.eval_batch_size, 64),
+                    device=model.device)
+    return ids.numpy(), trainer._valid_full_sort(is_test=True)
+
+
+def gloo_on_cuda(torch):
+    """Which collectives gloo runs on CUDA tensors, asked of the group
+    directly (parallel/collectives.py counts on all three): {op: "yes"
+    with the right sum or gather, or the error it raised}."""
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.full((4,), float(r + 1), device="cuda")
+    want = {"all_reduce": torch.full((4,), n * (n + 1) / 2, device="cuda"),
+            "broadcast": torch.full((4,), 1.0, device="cuda"),
+            "all_gather": torch.cat([torch.full((4,), float(i + 1),
+                                                device="cuda")
+                                     for i in range(n)])}
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts)
+
+    calls = {"all_reduce": lambda: dist.all_reduce(y := x.clone()) or y,
+             "broadcast": lambda: dist.broadcast(y := x.clone(), 0) or y,
+             "all_gather": all_gather}
+    out = {}
+    for op, call in calls.items():
+        try:
+            got = call()
+            torch.cuda.synchronize()
+            out[op] = "yes" if torch.equal(got, want[op]) else "wrong result"
+        except RuntimeError as e:
+            out[op] = str(e).splitlines()[0][:160]
+    return out
+
+
+def mesh_rank_full_sort(rank, mesh_shape):
+    """(c): CIKM_Model's full-sort test eval over a `model` axis: every
+    rank's launches, rank 0's ids, metrics and s; first, which collectives
+    gloo runs on CUDA tensors."""
+    import torch
+
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.ops import _kernels
+
+    rank_setup(torch)
+    gloo = gloo_on_cuda(torch)
+    cfg, data = mesh_data("CIKM_Model", mesh_shape=mesh_shape,
+                          full_sort=True, eval_by_user=False,
+                          save_recommended_topk=False)
+    trainer = Trainer(cfg, option_model(torch, cfg, data))
+    torch.cuda.synchronize()
+    reset_launches(_kernels)
+    t0 = time.perf_counter()
+    ids, (score, metrics) = full_sort_ids(torch, trainer)
+    torch.cuda.synchronize()
+    out = dict(launches=dict(_kernels.launches),
+               s=time.perf_counter() - t0)
+    if rank == 0:
+        out.update(ids=ids, score=score, metrics=metrics, gloo=gloo)
+    return out
+
+
+def rank_launches(tag, ranks, key=None):
+    """The launches of a group's ranks summed; every rank launched."""
+    per = [r[key]["launches"] if key else r["launches"] for r in ranks]
+    if any(p["spmm_csr"] == 0 for p in per):
+        raise AssertionError(f"{tag}: a rank launched no kernel: {per}")
+    return {k: sum(p[k] for p in per) for k in per[0]}
+
+
+def phase_mesh(torch, kernels):
+    """Phase 10: mesh_shape through torch.distributed on the one card:
+    (a) one NCCL rank started as torchrun starts it, the user's path;
+    (b) two ranks over gloo, {data: 2}: CIKM_Model, BM3 and SCHGN, 20 SGD
+    steps each against one process; (c) two ranks over gloo, {model: 2}:
+    CLUSSL with its prototype tables row-sharded, 20 SGD steps, and
+    CIKM_Model's full-sort test eval through distributed_full_sort_topk
+    (equal ids and metrics); (d) dryrun_multichip(4), {data: 2, model: 2},
+    four ranks over gloo. Every rank group has a deadline."""
+    import shutil
+    import socket
+
+    from foodrec_tpu_torch import config as config_mod
+    from foodrec_tpu_torch.multichip import dryrun_multichip
+    from foodrec_tpu_torch.parallel.spawn import run_ranks
+
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    config_dir = os.path.join(MESH_ROOT, "configs")
+    shutil.copytree(config_mod._CONFIG_DIR, config_dir)
+    os.makedirs(os.path.join(config_dir, "dataset"), exist_ok=True)
+    with open(os.path.join(config_dir, "dataset", f"{DATASET}.yaml"),
+              "w") as f:
+        f.write("mesh_shape: {data: 1}\n")
+    workdir = os.path.join(MESH_ROOT, "driver")
+    os.makedirs(workdir)
+    out, by_path = {}, {}
+    t_phase = time.perf_counter()
+
+    # (a) one rank, NCCL initialized by make_mesh from torchrun's variables
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    (a,) = run_ranks(mesh_rank_runner, 1, args=(config_dir, workdir),
+                     backend=None, timeout=MESH_TIMEOUT,
+                     env={"MASTER_ADDR": "localhost",
+                          "MASTER_PORT": str(port)})
+    a_s = time.perf_counter() - t0
+    log(f"[10 mesh] (a) runner.main, CIKM_Model, 1 epoch, mesh {a['mesh']}: "
+        f"wall {a['cli_s']:.3f} s (epoch {a['epoch']['s']:.3f} s), best "
+        f"{a['hyper']}, checkpoint {a['checkpoint']}; epoch launches "
+        f"{a['epoch']['launches']}, run {a['launches']}; reloaded into a "
+        f"model with no mesh: equal test metrics {json.dumps(a['test'])}; "
+        f"group {a_s:.1f} s")
+    out["a"] = dict(cli_s=a["cli_s"], epoch_s=a["epoch"]["s"],
+                    epoch_launches=a["epoch"]["launches"], mesh=a["mesh"],
+                    group_s=a_s, test=a["test"],
+                    steps=mesh_compare(torch, "(a) CIKM_Model {data: 1}, NCCL",
+                                       a["steps"], a["alone"]))
+    by_path["mesh (a) runner {data: 1}"] = a["launches"]
+    by_path["mesh (a) 20 steps {data: 1}"] = a["steps"]["launches"]
+
+    # (b) {data: 2} and (c) {model: 2}, two ranks sharing the card over gloo
+    lr = {"learning_rate": MESH_LR}
+    cases = {"b": [("CIKM_Model", {"data": 2}, lr),
+                   ("BM3", {"data": 2}, lr),
+                   ("SCHGN", {"data": 2}, lr)],
+             "c": [("PRICAI_ModelX", {"model": 2}, {**lr, **CLUSSL_CENTER})]}
+    for part, group in cases.items():
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank_steps, 2, args=(group,), backend="gloo",
+                          timeout=MESH_TIMEOUT)
+        g_s = time.perf_counter() - t0
+        for name, shape, extra in group:
+            got = ranks[0][name]
+            if shape.get("model", 1) > 1 and not got["sharded"]:
+                raise AssertionError(f"({part}) {name}: no table sharded")
+            alone = mesh_steps(torch, kernels, name, None, extra, start=True)
+            floor = mesh_steps(torch, kernels, name, None, extra, start=True,
+                               perturb=True)
+            tag = f"({part}) {name} {shape}, gloo, row-sharded {got['sharded']}"
+            log(f"[10 mesh] {tag}: the mesh's reduced gradient against one "
+                f"process's at the same parameters at each of {MESH_STEPS} "
+                f"steps: relative L2 {got['grad_l2']:.3e} at worst (bar "
+                f"{MESH_GRAD_L2:.0e}), a leaf's max|d| {got['grad_err']:.3e} "
+                f"of its largest entry at worst (bar {MESH_GRAD_LEAF:.0e})")
+            out[f"{part} {name}"] = dict(
+                mesh_compare(torch, tag, got, alone, floor),
+                sharded=got["sharded"], group_s=g_s)
+            by_path[f"mesh ({part}) {name} 20 steps {shape}"] = rank_launches(
+                tag, ranks, name)
+            torch.cuda.empty_cache()
+        log(f"[10 mesh] ({part}) group of 2 ranks: {g_s:.1f} s")
+
+    # (c) the full-sort test eval over {model: 2}
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank_full_sort, 2, args=({"model": 2},),
+                      backend="gloo", timeout=MESH_TIMEOUT)
+    g_s = time.perf_counter() - t0
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    cfg, data = mesh_data("CIKM_Model", full_sort=True, eval_by_user=False,
+                          save_recommended_topk=False)
+    trainer = Trainer(cfg, option_model(torch, cfg, data))
+    t0 = time.perf_counter()
+    ids, (score, metrics) = full_sort_ids(torch, trainer)
+    alone_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    log(f"[10 mesh] gloo on CUDA tensors, asked of a 2-rank group: "
+        f"{json.dumps(r0['gloo'])}")
+    out["gloo_on_cuda"] = r0["gloo"]
+    if set(r0["gloo"].values()) != {"yes"}:
+        raise AssertionError(f"gloo on CUDA tensors: {r0['gloo']}")
+    equal = float((r0["ids"] == ids).mean())
+    log(f"[10 mesh] (c) full-sort test over {{model: 2}}: {ids.shape[0]} "
+        f"users x {data.num_items} items, k={ids.shape[1]}, "
+        f"{r0['s']:.3f} s (alone {alone_s:.3f} s); ids equal to "
+        f"full_sort_topk's in {equal:.6f} of slots; metrics equal "
+        f"{r0['metrics'] == metrics}; group {g_s:.1f} s")
+    if equal != 1.0 or r0["metrics"] != metrics or r0["score"] != score:
+        raise AssertionError("(c) distributed full-sort differs from "
+                             "full_sort_topk")
+    out["c full_sort"] = dict(s=r0["s"], alone_s=alone_s, group_s=g_s,
+                              metrics=metrics)
+    by_path["mesh (c) full_sort test {model: 2}"] = rank_launches(
+        "(c) full_sort", ranks)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (d) the dry run on four ranks sharing the card
+    t0 = time.perf_counter()
+    d = dryrun_multichip(4, device="cuda", timeout=MESH_TIMEOUT)
+    d_s = time.perf_counter() - t0
+    if d["backend"] != "gloo":
+        raise AssertionError(f"(d) backend {d['backend']}")
+    per = d.pop("launches")
+    if any(p["spmm_csr"] == 0 for p in per):
+        raise AssertionError(f"(d) a rank launched no kernel: {per}")
+    by_path["mesh (d) dryrun_multichip(4)"] = {
+        k: sum(p[k] for p in per) for k in per[0]}
+    out["d"] = dict(d, group_s=d_s)
+    log(f"[10 mesh] (d) dryrun_multichip(4) over gloo: {d_s:.1f} s")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[10 mesh] launches by path (summed over each group's ranks): "
+        f"{json.dumps(by_path)}; phase {phase_s:.1f} s")
+    out["phase_s"] = phase_s
+    return out, by_path
+
+
 def kernel_entry(per_graph, per_key, **fields):
     """A kernels-JSON entry: times summed over the launches of one `per` on
     the main path's graphs; the power-law graphs (main_path False) stand
@@ -2067,6 +2648,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (build and check the kernels)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phases 1, 2 and 10 (scale-out) alone")
     args = ap.parse_args()
 
     import torch
@@ -2078,6 +2661,10 @@ def main():
 
     card = phase_device(torch)
     phase_build(_kernels)
+    if args.mesh_only:
+        ensure_dataset()
+        phase_mesh(torch, _kernels)
+        return 0
     phase_random_graphs(torch, _kernels, spmm)
     power_law = phase_power_law(torch, _kernels, spmm)
     if args.kernels_only:
@@ -2102,6 +2689,8 @@ def main():
                        trained["busy_us"]),
         "BM3": (zoo["BM3"]["epoch_s"], zoo["BM3"]["peak_gb"],
                 zoo["BM3"]["busy_us"])})
+    torch.cuda.empty_cache()
+    mesh, mesh_paths = phase_mesh(torch, _kernels)
 
     fwd_by_path = {"serve": served["launches"],
                    "train_epoch": trained["launches"]["spmm_csr"]}
@@ -2123,7 +2712,7 @@ def main():
         *((f"frozen {name} train_epoch", o["launches"])
           for name, o in options["frozen"].items()),
         ("LightGCN fit with trace", options["trace"]["launches"])]
-    for path, launches in option_paths:
+    for path, launches in [*option_paths, *mesh_paths.items()]:
         fwd_by_path[path] = launches["spmm_csr"]
         bwd_by_path[path] = launches["spmm_csr_bwd"]
     models = {name: dict(
@@ -2146,7 +2735,7 @@ def main():
             evaluate_test_s=served["eval_test_s"], timing_floor=floor,
             models=models, lightgcn_gate=gate,
             driver={k: v for k, v in driver.items() if k != "resume"},
-            options=options),
+            options=options, mesh=mesh),
         kernel_entry(
             bwd_graph, "launches_per_train_step", name="spmm_csr_bwd",
             replaces="foodrec_tpu/ops/spmm.py:129 (custom VJP :263-273)",

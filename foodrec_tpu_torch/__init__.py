@@ -16,7 +16,8 @@ All six models train and serve through it. The experiment driver is
 ported too: `python -m foodrec_tpu_torch.runner -m MODEL -d DATASET [--mg]`
 runs `engine/quick_start.py`'s grid search, with Mirror Gradient,
 checkpoints and resume, and the by-user, full-sort, sampled and study
-evaluations. What is left to port is in ROADMAP.md.
+evaluations, and `mesh_shape` scales it out over ranks of
+torch.distributed (`parallel/`). What is left to port is in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

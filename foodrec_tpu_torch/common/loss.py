@@ -6,9 +6,15 @@ Every loss takes tensors and returns a scalar. `weight` is the per-row
 sample weight: the JAX epoch always passes one (trainer.py:269, 276), so the
 batch losses take the weighted formulas. `emb_loss` without a weight is the
 reference's own form, which BM3 applies to whole propagated tables.
+
+A weighted loss reduces over the batch's rows through `batch_sum`: under a
+`data` mesh it is the global batch's value on every rank
+(parallel/mesh.py).
 """
 
 import torch
+
+from foodrec_tpu_torch.parallel.mesh import batch_sum
 
 
 def safe_l2_norm(x, dim=-1, keepdim=False):
@@ -39,7 +45,7 @@ def bpr_loss(pos_score, neg_score, weight, gamma=1e-10):
     """-log(gamma + sigmoid(pos - neg)), the weighted mean over rows
     (reference loss.py:8-34)."""
     loss = -torch.log(gamma + torch.sigmoid(pos_score - neg_score))
-    return (loss * weight).sum() / weight.sum().clamp_min(1.0)
+    return batch_sum(loss * weight) / batch_sum(weight).clamp_min(1.0)
 
 
 def emb_loss(*embeddings, weight=None):
@@ -54,8 +60,8 @@ def emb_loss(*embeddings, weight=None):
     total = 0.0
     for e in embeddings:
         w = weight.reshape((-1,) + (1,) * (e.dim() - 1))
-        total = total + torch.sqrt(((e * w) ** 2).sum() + 1e-24)
-    return total / weight.sum().clamp_min(1.0)
+        total = total + torch.sqrt(batch_sum((e * w) ** 2) + 1e-24)
+    return total / batch_sum(weight).clamp_min(1.0)
 
 
 def l2_loss(*embeddings, weight=None):
@@ -63,7 +69,9 @@ def l2_loss(*embeddings, weight=None):
     scaled by its weight when one is given (reference loss.py:53-60)."""
     total = 0.0
     for e in embeddings:
-        if weight is not None:
+        if weight is None:
+            total = total + 0.5 * (e ** 2).sum()
+        else:
             e = e * weight.reshape((-1,) + (1,) * (e.dim() - 1))
-        total = total + 0.5 * (e ** 2).sum()
+            total = total + 0.5 * batch_sum(e ** 2)
     return total

@@ -31,6 +31,7 @@ from foodrec_tpu_torch.common.init import (
     truncated_normal,
     xavier_uniform,
 )
+from foodrec_tpu_torch.parallel.mesh import batch_draw
 
 
 def gelu(x):
@@ -58,12 +59,18 @@ def layer_norm(x, gamma, beta, eps=1e-5):
     return gamma * (x - mu) * torch.rsqrt(var + eps) + beta
 
 
-def dropout(x, rate, generator):
-    """Inverted dropout: keep with probability 1 - rate, scale by 1/(1-rate)."""
+def dropout(x, rate, generator, rows=False):
+    """Inverted dropout: keep with probability 1 - rate, scale by 1/(1-rate).
+    `rows`: x's leading dim holds the batch's rows, so that under a `data`
+    mesh the mask is this rank's rows of the global batch's mask."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < 1.0 - rate
+
+    def draw(shape):
+        return torch.rand(shape, generator=generator, device=x.device,
+                          dtype=x.dtype)
+
+    keep = (batch_draw(draw, x.shape) if rows else draw(x.shape)) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -114,7 +121,7 @@ def _mha(p, x, nhead, pad_mask, drop_rate, generator):
     attn = torch.softmax(logits, dim=-1)
     # a fully padded row softmaxes to NaN; keep it finite (module.py:100-102)
     attn = torch.where(torch.isnan(attn), 0.0, attn)
-    attn = dropout(attn, drop_rate, generator)
+    attn = dropout(attn, drop_rate, generator, rows=True)
     out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
     out = out.transpose(1, 2).reshape(b, L, d)
     return out @ p["out_proj_w"] + p["out_proj_b"]
@@ -127,12 +134,12 @@ def transformer_encoder_apply(params, x, nhead, pad_mask=None, act="gelu",
     act_fn = ACT[act]
     for p in params:
         a = _mha(p, x, nhead, pad_mask, drop_rate, generator)
-        x = layer_norm(x + dropout(a, drop_rate, generator),
+        x = layer_norm(x + dropout(a, drop_rate, generator, rows=True),
                        p["ln1_g"], p["ln1_b"])
         h = act_fn(x @ p["ff1_w"] + p["ff1_b"])
-        h = dropout(h, drop_rate, generator)
+        h = dropout(h, drop_rate, generator, rows=True)
         h = h @ p["ff2_w"] + p["ff2_b"]
-        x = layer_norm(x + dropout(h, drop_rate, generator),
+        x = layer_norm(x + dropout(h, drop_rate, generator, rows=True),
                        p["ln2_g"], p["ln2_b"])
     return x
 
@@ -223,14 +230,14 @@ def bert_encoder_apply(params, x, attn_mask, nhead, act="gelu",
         v = heads(x @ p["v_w"] + p["v_b"])
         logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(dh)
         attn = torch.softmax(logits + attn_mask, dim=-1)
-        attn = dropout(attn, attn_dropout, generator)
+        attn = dropout(attn, attn_dropout, generator, rows=True)
         ctx = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         h = ctx.transpose(1, 2).reshape(b, L, d) @ p["dense_w"] + p["dense_b"]
-        h = dropout(h, hidden_dropout, generator)
+        h = dropout(h, hidden_dropout, generator, rows=True)
         x = layer_norm(h + x, p["ln1_g"], p["ln1_b"], eps=layer_norm_eps)
 
         h = act_fn(x @ p["ff1_w"] + p["ff1_b"]) @ p["ff2_w"] + p["ff2_b"]
-        h = dropout(h, hidden_dropout, generator)
+        h = dropout(h, hidden_dropout, generator, rows=True)
         x = layer_norm(h + x, p["ln2_g"], p["ln2_b"], eps=layer_norm_eps)
     return x
 

@@ -23,6 +23,8 @@ either way.
 
 import torch
 
+from foodrec_tpu_torch.parallel.mesh import batch_draw
+
 
 def is_excluded(excl_bitmap, users, items):
     """True where `items` is a positive of `users` in the packed bitmap."""
@@ -103,12 +105,15 @@ def ssl_mask_ingredients(ingre_codes, ingre_num, n_ingredients, generator,
     b, L = ingre_codes.shape
     dev = ingre_codes.device
     real = torch.arange(L, device=dev)[None, :] < ingre_num[:, None]
-    do_mask = (torch.rand((b, L), generator=generator, device=dev)
+    # draws of the global batch's rows under a `data` mesh
+    do_mask = (batch_draw(lambda s: torch.rand(s, generator=generator,
+                                               device=dev), (b, L))
                < masked_p) & real
     masked_seq = torch.where(do_mask, n_ingredients + 1, ingre_codes)
 
-    draws = torch.randint(0, n_ingredients, (n_tries, b, L),
-                          generator=generator, device=dev)
+    draws = batch_draw(lambda s: torch.randint(
+        0, n_ingredients, s, generator=generator, device=dev),
+        (n_tries, b, L), dim=1)
     real_codes = torch.where(real, ingre_codes, -1)
     in_recipe = (draws[..., None] == real_codes[None, :, None, :]).any(-1)
     ok = ~in_recipe                                        # [T, B, L]

@@ -17,6 +17,10 @@ the last user block is padded with user 0 to `user_batch`, and the last
 item chunk to `item_chunk` with ids clamped to n_items - 1, whose scores are
 set to -inf. A model whose scores mix the samples of a block (SCHGN's
 faithful interleave) then scores every item as the JAX package does.
+
+Under a mesh with a `model` axis, `distributed_full_sort_topk` splits the
+catalog by item over the axis: each rank sweeps its shard, and the shards'
+top-k lists are gathered and merged in the same order.
 """
 
 import os
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from foodrec_tpu_torch.engine.evaluator import descending_order
+from foodrec_tpu_torch.parallel.collectives import all_gather
 from foodrec_tpu_torch.engine.matrics import metrics_dict
 from foodrec_tpu_torch.utils.misc import get_local_time
 
@@ -32,12 +37,38 @@ topk_metrics = {m.lower(): m for m in
                 ["Recall", "Recall2", "Precision", "NDCG", "MAP"]}
 
 
-def item_chunks(n_items, item_chunk, device):
-    """(ids, valid) of each chunk the sweep scores: `item_chunk` ids, the
-    last chunk's padding clamped to n_items - 1 and not valid."""
-    for start in range(0, n_items, item_chunk):
+def item_chunks(n_items, item_chunk, device, first=0, stop=None):
+    """(ids, valid) of each chunk the sweep scores over items [first,
+    stop) (default: the catalog): `item_chunk` ids, the last chunk's
+    padding, and ids past the catalog, clamped to n_items - 1 and not
+    valid."""
+    stop = n_items if stop is None else stop
+    for start in range(first, stop, item_chunk):
         ids = torch.arange(start, start + item_chunk, device=device)
-        yield ids.clamp_max(n_items - 1), ids < n_items
+        yield ids.clamp_max(n_items - 1), ids < min(stop, n_items)
+
+
+def _block_topk(score_fn, blk, k, chunks):
+    """The running top-k merge of one user block over the item chunks:
+    (scores, ids) [B, k], descending, equal scores by lower id."""
+    b = blk.shape[0]
+    best_s = torch.full((b, k), -torch.inf, device=blk.device)
+    best_i = torch.zeros((b, k), dtype=torch.int64, device=blk.device)
+    for items, valid in chunks:
+        scores = torch.where(valid, score_fn(blk, items), -torch.inf)
+        merged_s = torch.cat([best_s, scores], dim=1)
+        merged_i = torch.cat([best_i, items.expand(b, -1)], dim=1)
+        sel = descending_order(merged_s)[:, :k]
+        best_s = merged_s.gather(1, sel)
+        best_i = merged_i.gather(1, sel)
+    return best_s, best_i
+
+
+def _user_blocks(users, user_batch, device):
+    """The users padded with user 0 to whole blocks of `user_batch`."""
+    users = torch.as_tensor(users).to(device=device, dtype=torch.int64)
+    users = torch.cat([users, users.new_zeros((-len(users)) % user_batch)])
+    return [users[s:s + user_batch] for s in range(0, len(users), user_batch)]
 
 
 def full_sort_topk(score_fn, users, n_items, k, user_batch=64,
@@ -47,23 +78,41 @@ def full_sort_topk(score_fn, users, n_items, k, user_batch=64,
     score_fn(users int64 [B], items int64 [C]) -> float32 [B, C] scores of
     each user in the block against one shared list of item ids.
     """
-    users = torch.as_tensor(users).to(device=device, dtype=torch.int64)
-    u = len(users)
-    users = torch.cat([users, users.new_zeros((-u) % user_batch)])
+    out = [_block_topk(score_fn, blk, k,
+                       item_chunks(n_items, item_chunk, device))[1]
+           for blk in _user_blocks(users, user_batch, device)]
+    return torch.cat(out)[:len(users)].cpu()
+
+
+def distributed_full_sort_topk(mesh, score_fn, users, n_items, k,
+                               user_batch=64, item_chunk=8192, device="cuda"):
+    """`full_sort_topk` with the catalog split by item over the mesh's
+    `model` axis (topk_evaluator.py:68-135): the catalog padded to a
+    multiple of the axis, the pad at -inf; each rank sweeps its shard of
+    items for a local top-min(k, shard), then the [B, k'] scores and ids of
+    every shard are gathered over `model` and merged in the same order
+    (descending, equal scores by lower id, the shards' lists in item
+    order), so the ids equal `full_sort_topk`'s. Per user block the
+    traffic is O(shards * k); the scores never leave their rank.
+    score_fn is full_sort_topk's; every `data` rank computes the same."""
+    n_sh, i = mesh.size("model"), mesh.index("model")
+    group = mesh.group("model")
+    shard = -(-n_items // n_sh)
+    local_k = min(k, shard)
     out = []
-    for s in range(0, len(users), user_batch):
-        blk = users[s:s + user_batch]
-        best_s = torch.full((user_batch, k), -torch.inf, device=device)
-        best_i = torch.zeros((user_batch, k), dtype=torch.int64, device=device)
-        for items, valid in item_chunks(n_items, item_chunk, device):
-            scores = torch.where(valid, score_fn(blk, items), -torch.inf)
-            merged_s = torch.cat([best_s, scores], dim=1)
-            merged_i = torch.cat([best_i, items.expand(user_batch, -1)], dim=1)
-            sel = descending_order(merged_s)[:, :k]
-            best_s = merged_s.gather(1, sel)
-            best_i = merged_i.gather(1, sel)
-        out.append(best_i)
-    return torch.cat(out)[:u].cpu()
+    for blk in _user_blocks(users, user_batch, device):
+        best_s, best_i = _block_topk(
+            score_fn, blk, local_k,
+            item_chunks(n_items, min(item_chunk, shard), device,
+                        first=i * shard, stop=(i + 1) * shard))
+        b = blk.shape[0]
+        all_s = all_gather(best_s, group).reshape(n_sh, b, local_k)
+        all_i = all_gather(best_i, group).reshape(n_sh, b, local_k)
+        all_s = all_s.transpose(0, 1).reshape(b, n_sh * local_k)
+        all_i = all_i.transpose(0, 1).reshape(b, n_sh * local_k)
+        sel = descending_order(all_s)[:, :k]
+        out.append(all_i.gather(1, sel))
+    return torch.cat(out)[:len(users)].cpu()
 
 
 class TopKEvaluator:

@@ -52,8 +52,25 @@ Semantics kept from the JAX package:
 
 Random streams come from one `torch.Generator` on the model's device, seeded
 from config['seed']: the permutation, the negatives and the dropout masks.
-Not ported yet (ROADMAP.md): the device mesh (`mesh_shape`), which raises
-where it is set.
+
+`mesh_shape` (trainer.py:110-113, 282-285, 501-506, 663-684) runs the
+trainer on every rank of a mesh (parallel/mesh.py), with the semantics of
+the JAX package's mesh: a sharded run computes what one process computes.
+Every rank draws the global batch, its permutation, negatives and dropout
+masks from the same generator; `data` ranks take their rows of each batch
+that divides the axis (a tail that does not runs whole on each); the loss
+parts are the global batch's on every rank, each rank backpropagates 1/size
+of them, and the gradients are summed over `data` with one all_reduce after
+each backward (both of Mirror Gradient's), so that the optimizer, local to
+each rank, takes the single-process step. The modality tables that
+`param_shardings` picks hold only their rows on each `model` rank, with
+their optimizer state; the replicated leaves take the first `model` rank's
+gradient, so that their copies cannot part. Checkpoints hold the tables
+whole and are written by rank 0; a mesh checkpoint loads into one process
+and the other way round. The evaluations are replicated, as in the JAX
+package, except the full-sort top-k, which a `model` axis splits by item
+(`distributed_full_sort_topk`); every rank takes rank 0's metrics, so that
+early stopping agrees.
 """
 
 import functools
@@ -64,6 +81,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from foodrec_tpu_torch.data.device import build_eval_set
 from foodrec_tpu_torch.data.sampling import (
@@ -74,9 +92,13 @@ from foodrec_tpu_torch.engine import checkpoint as ckpt
 from foodrec_tpu_torch.engine.evaluator import evaluate_by_user
 from foodrec_tpu_torch.engine.topk_evaluator import (
     TopKEvaluator,
+    distributed_full_sort_topk,
     full_sort_topk,
     sample_rank_metrics,
 )
+from foodrec_tpu_torch.models.base import GeneralRecommender
+from foodrec_tpu_torch.parallel import collectives as coll
+from foodrec_tpu_torch.parallel.mesh import batch_rows, make_mesh, shard_batch
 from foodrec_tpu_torch.utils.diagnostics import embedding_cos_similarity
 from foodrec_tpu_torch.utils.misc import dict2str, early_stopping
 
@@ -154,9 +176,13 @@ def build_optimizer(learner, params, lr, weight_decay):
 
 class Trainer:
     def __init__(self, config, model, mg=False):
-        if config["mesh_shape"]:
-            raise NotImplementedError(
-                "mesh_shape is not ported yet (ROADMAP.md)")
+        # the mesh first: a size that differs from the process group's
+        # raises before anything is built
+        self.mesh = make_mesh(config["mesh_shape"], model.device)
+        if self.mesh is not None and self.mesh.size("model") > 1:
+            model.shard_tables(self.mesh)
+        # rank 0 writes the logs' files, checkpoints and top-k lists
+        self.writer = self.mesh is None or self.mesh.rank == 0
         self.config = config
         self.model = model
         self.logger = logging.getLogger()
@@ -244,6 +270,9 @@ class Trainer:
         Returns the loss parts summed over the batches (a Mirror Gradient
         batch's first pass), [n_parts] on the device.
 
+        Under a mesh every rank passes the same global batches; each
+        takes its rows of them (`_backward`).
+
         `beta` counts a batch's index in the epoch, `epoch_batch`: the
         batches stepped since `train_epoch` began the epoch, modulo
         n_batches, so that whole epochs passed through here one after
@@ -264,12 +293,49 @@ class Trainer:
         return total
 
     def _backward(self, u, pos, neg, weight=None):
-        """The loss parts of one batch, their sum's gradient left in .grad."""
-        parts = self.model.calculate_loss(u, pos, neg, generator=self.generator,
-                                          weight=weight)
+        """The loss parts of one batch, their sum's gradient left in .grad.
+        Under a mesh the batch is the global one: this rank takes its rows
+        (shard_batch), and the gradient is the global batch's."""
         self.optimizer.zero_grad(set_to_none=True)
-        sum(parts).backward()
+        if self.mesh is None:
+            parts = self.model.calculate_loss(
+                u, pos, neg, generator=self.generator, weight=weight)
+            sum(parts).backward()
+            return torch.stack(parts).detach()
+        d = self.mesh.size("data")
+        b = shard_batch(self.mesh, {"u": u, "pos": pos, "neg": neg,
+                                    "weight": weight})
+        with batch_rows(self.mesh, u.shape[0]):
+            parts = self.model.calculate_loss(
+                b["u"], b["pos"], b["neg"], generator=self.generator,
+                weight=b["weight"])
+            loss = sum(parts)
+            (loss / d if d > 1 else loss).backward()
+        self._reduce_grads()
         return torch.stack(parts).detach()
+
+    def _reduce_grads(self):
+        """Sum the gradients over `data` (one all_reduce of every leaf that
+        has a gradient on some rank; a leaf with none on any rank keeps
+        None, as in one process); then the replicated leaves take the first
+        `model` rank's gradient."""
+        mesh = self.mesh
+        named = list(self.model.named_parameters())
+        if mesh.size("data") > 1:
+            group = mesh.group("data")
+            has = coll.all_reduce(torch.tensor(
+                [p.grad is not None for _, p in named], dtype=torch.int32,
+                device=self.model.device), group).tolist()
+            live = [p for (_, p), h in zip(named, has) if h]
+            for p in live:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            _flat_collective(live, lambda f: coll.all_reduce(f, group))
+        if mesh.size("model") > 1:
+            group = mesh.group("model")
+            rep = [p for n, p in named
+                   if n not in self.model.row_shards and p.grad is not None]
+            _flat_collective(rep, lambda f: coll.broadcast(f, group))
 
     def _set_lr(self):
         lr = self.lr_schedule(self.n_updates)
@@ -284,12 +350,32 @@ class Trainer:
                 if p.grad is not None:
                     p.grad.mul_(scale)
         if self.clip_grad_norm:
-            torch.nn.utils.clip_grad_norm_(
-                self.model.parameters(),
-                self.clip_grad_norm.get("max_norm", 1.0))
+            max_norm = self.clip_grad_norm.get("max_norm", 1.0)
+            if self.model.row_shards:
+                self._clip_sharded(max_norm)
+            else:
+                torch.nn.utils.clip_grad_norm_(self.model.parameters(),
+                                               max_norm)
         self._set_lr()
         self.optimizer.step()
         self.n_updates += 1
+
+    @torch.no_grad()
+    def _clip_sharded(self, max_norm):
+        """clip_grad_norm_ over the whole model when tables are row-sharded:
+        their squares summed over `model`."""
+        dtype = next(self.model.parameters()).dtype
+        sq = [torch.zeros((), dtype=dtype, device=self.model.device)
+              for _ in range(2)]
+        for n, p in self.model.named_parameters():
+            if p.grad is not None:
+                sq[n in self.model.row_shards] += (p.grad ** 2).sum()
+        coll.all_reduce(sq[1], self.mesh.group("model"))
+        total = torch.sqrt(sq[0] + sq[1])
+        coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+        for p in self.model.parameters():
+            if p.grad is not None:
+                p.grad.mul_(coef.to(p.grad.dtype))
 
     def _mirror_step(self, u, pos, neg, weight=None):
         """Mirror Gradient on one batch: a step on alpha1 * g, then the batch
@@ -478,7 +564,7 @@ class Trainer:
                 if update_flag:
                     self.best_valid_result = valid_result
                     best_state = self._host_snapshot()
-                    if saved:
+                    if saved and self.writer:
                         os.makedirs(ckp_root, exist_ok=True)
                         ckpt.save_best(best_state, ckpt_path)
                         self.logger.info(f"Saving current best: {ckpt_path}")
@@ -489,19 +575,60 @@ class Trainer:
                     break
 
         # the final test on the best-on-valid parameters (trainer.py:614-617)
-        self.model.load_state_dict(best_state)
+        self.model.load_full_state_dict(best_state)
         _, best_test_upon_valid = self._valid(test_data, is_test=True)
         return (self.best_valid_score, self.best_valid_result,
                 best_test_upon_valid)
 
     def _host_snapshot(self):
+        """The whole state_dict on the host (row-sharded tables gathered)."""
         return {k: v.detach().to("cpu", copy=True)
-                for k, v in self.model.state_dict().items()}
+                for k, v in self.model.full_state_dict().items()}
+
+    def _sharded_state_ids(self):
+        """{optimizer state index: (first row, local rows, full rows)} of
+        the row-sharded tables (the optimizer holds model.parameters() in
+        order)."""
+        shards = self.model.row_shards
+        return {i: (shards[n][0], p.shape[0], shards[n][1]) for i, (n, p) in
+                enumerate(self.model.named_parameters()) if n in shards}
+
+    def _full_optimizer_state(self):
+        """optimizer.state_dict() with the row-sharded tables' moments
+        gathered whole (a collective over `model`)."""
+        state = self.optimizer.state_dict()
+        ids = self._sharded_state_ids()
+        if not ids:
+            return state
+        state["state"] = {k: dict(v) for k, v in state["state"].items()}
+        for i, (_, rows, _) in ids.items():
+            for key, v in state["state"].get(i, {}).items():
+                if torch.is_tensor(v) and v.dim() and v.shape[0] == rows:
+                    state["state"][i][key] = coll.all_gather(
+                        v, self.mesh.group("model"))
+        return state
+
+    def _load_optimizer_state(self, state):
+        """Load a whole optimizer state, keeping this rank's rows of the
+        row-sharded tables' moments."""
+        ids = self._sharded_state_ids()
+        if ids:
+            state = dict(state)
+            state["state"] = {k: dict(v) for k, v in state["state"].items()}
+            for i, (first, rows, full) in ids.items():
+                for key, v in state["state"].get(i, {}).items():
+                    if torch.is_tensor(v) and v.dim() and v.shape[0] == full:
+                        state["state"][i][key] = v[first:first + rows]
+        self.optimizer.load_state_dict(state)
 
     def _save_state(self, path, epoch, cur_step):
+        model_state = self.model.full_state_dict()
+        optimizer_state = self._full_optimizer_state()
+        if not self.writer:
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         ckpt.save_state(
-            path, self.model.state_dict(), self.optimizer.state_dict(),
+            path, model_state, optimizer_state,
             {"scheduler": self.scheduler.state_dict(),
              "n_updates": self.n_updates},
             self.generator.get_state(), epoch, self.best_valid_score,
@@ -513,8 +640,8 @@ class Trainer:
         package, the best parameters start as the resumed ones and the best
         valid result as None."""
         state = ckpt.load_state(path)
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.model.load_full_state_dict(state["model"])
+        self._load_optimizer_state(state["optimizer"])
         self.scheduler.load_state_dict(state["schedule"]["scheduler"])
         self.n_updates = state["schedule"]["n_updates"]
         self.generator.set_state(state["generator"])
@@ -528,12 +655,19 @@ class Trainer:
     @torch.no_grad()
     def _valid(self, eval_set, is_test=False):
         """Dispatch between the reference's three eval paths
-        (trainer.py:428-437): eval_by_user (default) > full_sort > sampled."""
+        (trainer.py:428-437): eval_by_user (default) > full_sort > sampled.
+        Under a mesh every rank returns rank 0's (score, metrics)."""
         if self.config["eval_by_user"]:
-            return self._valid_by_user(eval_set)
-        if self.config["full_sort"]:
-            return self._valid_full_sort(is_test)
-        return self._valid_sample(is_test)
+            out = self._valid_by_user(eval_set)
+        elif self.config["full_sort"]:
+            out = self._valid_full_sort(is_test)
+        else:
+            out = self._valid_sample(is_test)
+        if self.mesh is not None and self.mesh.world_size > 1:
+            box = [out]
+            dist.broadcast_object_list(box, src=0)
+            out = box[0]
+        return out
 
     def _eval_batch(self):
         """The user block of by-user, sampled and study evaluation:
@@ -570,8 +704,18 @@ class Trainer:
         pos_len = [len(p) for p in pos_items]
 
         evaluator = TopKEvaluator(self.config)
+        evaluator.save_recom_result = (bool(evaluator.save_recom_result)
+                                       and self.writer)
         cache = model.eval_cache()
-        topk_index = full_sort_topk(
+        # item-sharded over a `model` axis when the model scores by the
+        # base dot product (trainer.py:663-671); SCHGN's scorer sweeps
+        # replicated
+        sweep = full_sort_topk
+        if (self.mesh is not None and self.mesh.size("model") > 1
+                and type(model).score_items
+                is GeneralRecommender.score_items):
+            sweep = functools.partial(distributed_full_sort_topk, self.mesh)
+        topk_index = sweep(
             functools.partial(model.score_items, cache), users, ds.num_items,
             max(evaluator.topk), user_batch=min(self.eval_batch_size, 64),
             device=model.device)
@@ -702,6 +846,18 @@ class Trainer:
         """The best-on-valid state_dict `fit(saved=True)` wrote, on the
         host, for `model.load_state_dict`."""
         return ckpt.load_best(path)
+
+
+def _flat_collective(params, op):
+    """op on one flat buffer of the params' gradients, copied back."""
+    if not params:
+        return
+    flat = op(torch.cat([p.grad.reshape(-1) for p in params]))
+    at = 0
+    for p in params:
+        n = p.numel()
+        p.grad.copy_(flat[at:at + n].view_as(p.grad))
+        at += n
 
 
 def get_trainer():

@@ -20,6 +20,11 @@ and evaluation splits into
     score_from_cache(cache, users, cand)  -> [B, C] candidate scores
     score_items(cache, users, items)      -> [B, C] scores against one shared
                                              item list (full-catalog top-k)
+
+Under a mesh with a `model` axis, `shard_tables` keeps only this rank's
+rows of the tables `param_shardings` picks, and the model reads them
+through `table_rows` (a gather by ids) and `table_map` (a whole-table
+projection), which give every rank the single-process values.
 """
 
 import numpy as np
@@ -27,6 +32,22 @@ import torch
 from torch import nn
 
 from foodrec_tpu_torch.ops.spmm import Propagator
+from foodrec_tpu_torch.parallel.collectives import (
+    all_gather,
+    model_gather,
+    model_grad_sum,
+    sharded_lookup,
+)
+from foodrec_tpu_torch.parallel.mesh import replicated
+
+
+def row_sharded(name, shape, n_model):
+    """The JAX package's rule (foodrec_tpu/models/base.py:176-198): a
+    parameter is row-sharded over a `model` axis of n_model > 1 when it is
+    2-D with at least 512 columns, its rows divide n_model and its name
+    holds `embedding` (the modality feature tables)."""
+    return (n_model > 1 and len(shape) == 2 and shape[1] >= 512
+            and shape[0] % n_model == 0 and "embedding" in name)
 
 
 def as_parameters(tree, device):
@@ -43,6 +64,9 @@ def as_parameters(tree, device):
 
 
 class GeneralRecommender(nn.Module):
+    # {name: (first row, full rows)} of the row-sharded tables
+    row_shards = {}
+
     def __init__(self, config, dataset):
         super().__init__()
         self.config = config
@@ -81,6 +105,68 @@ class GeneralRecommender(nn.Module):
         if weight is None:
             return torch.ones(user.shape[0], dtype=dtype, device=user.device)
         return weight.to(dtype)
+
+    # -- sharding -------------------------------------------------------------
+    def param_shardings(self, mesh):
+        """{parameter name: placement}: ("model",) for a table row-sharded
+        over `model` (`row_sharded`), () for a replicated one."""
+        m = mesh.size("model") if mesh is not None else 1
+        return {n: ("model",) if row_sharded(n, tuple(p.shape), m)
+                else replicated(mesh) for n, p in self.named_parameters()}
+
+    def shard_tables(self, mesh):
+        """Keep only this rank's rows [i * n / m, (i + 1) * n / m) of each
+        table `param_shardings` row-shards, i the rank's `model` index."""
+        self._mesh = mesh
+        self.row_shards = {}
+        m, i = mesh.size("model"), mesh.index("model")
+        for name, spec in self.param_shardings(mesh).items():
+            if not spec:
+                continue
+            full = self.get_parameter(name)
+            n = full.shape[0] // m
+            path, _, leaf = name.rpartition(".")
+            setattr(self.get_submodule(path), leaf, nn.Parameter(
+                full.detach()[i * n:(i + 1) * n].clone()))
+            self.row_shards[name] = (i * n, full.shape[0])
+
+    def table_rows(self, name, ids):
+        """The table `name`'s rows at `ids` (any shape)."""
+        table = getattr(self, name)
+        if name not in self.row_shards:
+            return table[ids]
+        return sharded_lookup(table, ids, self.row_shards[name][0],
+                              self._mesh.group("model"))
+
+    def table_map(self, name, fn, weights):
+        """fn(weights, table `name`), fn mapping the table's rows one to one
+        with the dict of parameters `weights` (a projection, `linear_apply`):
+        a row-sharded table's local rows mapped, then gathered over `model`,
+        the weights' gradient summed over `model`."""
+        table = getattr(self, name)
+        if name not in self.row_shards:
+            return fn(weights, table)
+        group = self._mesh.group("model")
+        weights = {k: model_grad_sum(w, group) for k, w in weights.items()}
+        return model_gather(fn(weights, table), group)
+
+    def full_state_dict(self):
+        """The state_dict with every row-sharded table gathered whole (a
+        collective over `model`): what one process holds."""
+        state = self.state_dict()
+        for name in self.row_shards:
+            state[name] = all_gather(state[name].detach(),
+                                     self._mesh.group("model"))
+        return state
+
+    def load_full_state_dict(self, state):
+        """Load a whole state_dict (`full_state_dict`'s, or one process's),
+        keeping this rank's rows of the row-sharded tables."""
+        state = dict(state)
+        for name, (first, _) in self.row_shards.items():
+            rows = self.get_parameter(name).shape[0]
+            state[name] = state[name][first:first + rows]
+        self.load_state_dict(state)
 
     def propagator(self, adj):
         """A Propagator over `adj` with the config's spmm_impl and

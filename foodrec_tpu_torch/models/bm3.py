@@ -36,10 +36,11 @@ from foodrec_tpu_torch.ops.graph import (
     ui_bipartite_edges,
 )
 from foodrec_tpu_torch.ops.spmm import propagate_mean
+from foodrec_tpu_torch.parallel.mesh import batch_sum
 
 
 def _wmean(x, w):
-    return (x * w).sum() / w.sum().clamp_min(1.0)
+    return batch_sum(x * w) / batch_sum(w).clamp_min(1.0)
 
 
 @register("BM3")
@@ -108,8 +109,8 @@ class BM3(GeneralRecommender):
         # text before image, the JAX package's order of draws
         cl = 0.0
         for name in reversed(self.modalities):
-            feat_online = linear_apply(getattr(self, f"{name}_trs"),
-                                       getattr(self, f"{name}_embedding"))
+            feat_online = self.table_map(f"{name}_embedding", linear_apply,
+                                         getattr(self, f"{name}_trs"))
             target = dropout(feat_online.detach(), self.dropout,
                              generator)[pos_item]
             online = linear_apply(self.predictor, feat_online)[pos_item]

@@ -62,6 +62,7 @@ from foodrec_tpu_torch.ops.graph import (
     ui_bipartite_edges,
 )
 from foodrec_tpu_torch.ops.spmm import propagate_mean
+from foodrec_tpu_torch.parallel.mesh import batch_sum
 
 
 def _softplus(x):
@@ -181,8 +182,10 @@ class CIKM_Model(GeneralRecommender):
 
         # multimodal queries (cikm_model.py:240-246)
         mm_query = torch.stack(
-            [linear_apply(self.image_trs, self.image_embedding[items2]),
-             linear_apply(self.text_trs, self.text_embedding[items2])],
+            [linear_apply(self.image_trs,
+                          self.table_rows("image_embedding", items2)),
+             linear_apply(self.text_trs,
+                          self.table_rows("text_embedding", items2))],
             dim=1)                                            # [2B, 2, D]
         item_health = target_attention_apply(
             self.mm_target_atten, mm_query, encoded, self.nhead,
@@ -200,7 +203,7 @@ class CIKM_Model(GeneralRecommender):
         log_p = (-_softplus(-health_logit)).clamp_min(-100.0)
         log_1mp = (-_softplus(health_logit)).clamp_min(-100.0)
         bce = -(health_level * log_p + (1 - health_level) * log_1mp)
-        health_loss = (bce * w2[:, None]).sum()
+        health_loss = batch_sum(bce * w2[:, None])
 
         # BPR (cikm_model.py:266-271)
         u_e = user_all[user]
@@ -211,7 +214,7 @@ class CIKM_Model(GeneralRecommender):
 
         # KD hinge (cikm_model.py:273-279)
         cos = cosine(item_know, torch.cat([pos_e, neg_e], dim=0))
-        kd = 1 - (cos * w2).sum() / w2.sum().clamp_min(1.0)
+        kd = 1 - batch_sum(cos * w2) / batch_sum(w2).clamp_min(1.0)
         kd_loss = (kd - self.kd_threshold).clamp_min(0.0)
 
         # reg (cikm_model.py:281-290): the pad row gets no gradient here

@@ -71,7 +71,8 @@ class LightGCN(GeneralRecommender):
 
     def _ego(self):
         if self.has_feat:
-            item_ego = linear_apply(self.image_trs, self.image_embedding)
+            item_ego = self.table_map("image_embedding", linear_apply,
+                                      self.image_trs)
         else:
             item_ego = self.item_embedding
         return torch.cat([self.user_embedding, item_ego], dim=0)

@@ -39,6 +39,7 @@ from foodrec_tpu_torch.ops.graph import (
     ui_bipartite_edges,
 )
 from foodrec_tpu_torch.ops.spmm import propagate_mean
+from foodrec_tpu_torch.parallel.mesh import gather_batch_rows
 
 
 @register("PRICAI_ModelX")
@@ -93,10 +94,10 @@ class PRICAI_ModelX(GeneralRecommender):
                     nn.Parameter(proto.to(self.device)))
 
     def _prototypes(self, name):
-        proto = getattr(self, f"{name}_prototype_embedding")
         if self.use_center:
-            return linear_apply(getattr(self, f"{name}_trs"), proto)
-        return proto
+            return self.table_map(f"{name}_prototype_embedding",
+                                  linear_apply, getattr(self, f"{name}_trs"))
+        return getattr(self, f"{name}_prototype_embedding")
 
     def forward(self):
         def view(prop, extra):
@@ -120,9 +121,10 @@ class PRICAI_ModelX(GeneralRecommender):
         weight = self.sample_weight(user, weight)
         all_item = torch.cat([pos_item, neg_item])
         user_all, item_all, (image_v, text_v, ingre_v) = self.forward()
-        item_image = image_v[all_item]
-        item_text = text_v[all_item]
-        item_ingre = ingre_v[all_item]
+        # dCor reads the global batch's rows (all of them under a mesh)
+        item_image = gather_batch_rows(image_v[all_item])
+        item_text = gather_batch_rows(text_v[all_item])
+        item_ingre = gather_batch_rows(ingre_v[all_item])
 
         u_e = user_all[user]
         mf_loss = bpr_loss((u_e * item_all[pos_item]).sum(1),

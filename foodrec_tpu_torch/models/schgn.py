@@ -54,6 +54,11 @@ from foodrec_tpu_torch.data.sampling import ssl_mask_ingredients
 from foodrec_tpu_torch.models import register
 from foodrec_tpu_torch.models.base import GeneralRecommender, as_parameters
 from foodrec_tpu_torch.ops.graph import gcn_conv_adjacency
+from foodrec_tpu_torch.parallel.mesh import (
+    batch_sum,
+    gather_batch_rows,
+    take_batch_rows,
+)
 
 
 @register("SCHGN")
@@ -181,8 +186,12 @@ class SCHGN(GeneralRecommender):
                        @ self.W_att_comp["w"] + self.W_att_comp["b"])
         scores = (h @ self.h_att_comp["w"])[..., 0]           # [*lead, 4]
         if self.faithful_interleave:
+            # mixes the samples of the block: under a `data` mesh, the
+            # global batch's (a train step's lead is the batch)
+            scores = gather_batch_rows(scores)
             lead = scores.shape[:-1]
-            scores = scores.reshape(-1, 4).T.reshape(lead + (4,))
+            scores = take_batch_rows(
+                scores.reshape(-1, 4).T.reshape(lead + (4,)))
         weights = torch.softmax(scores, dim=-1)
         return (weights[..., None, :] @ comps)[..., 0, :]
 
@@ -209,7 +218,7 @@ class SCHGN(GeneralRecommender):
         ui = torch.cat([u_emb, item_att, u_emb * item_att], dim=-1)
         hidden = ui @ self.W_concat["w"] + self.W_concat["b"]
         if training:
-            hidden = dropout(hidden, 0.5, generator)
+            hidden = dropout(hidden, 0.5, generator, rows=True)
         out = F.relu(hidden) @ self.output_mlp["w"]
         return out.reshape(lead)
 
@@ -240,7 +249,7 @@ class SCHGN(GeneralRecommender):
         dist = torch.sigmoid(score(pos_seq) - score(neg_seq))
         bce = -torch.log(dist).clamp_min(-100.0)  # BCE against ones
         mip_mask = masked_seq == self.n_ingredients + 1
-        return (bce * mip_mask).sum()
+        return batch_sum(bce * mip_mask)
 
     # ------------------------------------------------------------------ loss
     def calculate_loss(self, user, pos_item, neg_item, generator=None,
@@ -257,7 +266,7 @@ class SCHGN(GeneralRecommender):
         training = not deterministic
         pos_scores = self._score(tables, user, pos_item, generator, training)
         neg_scores = self._score(tables, user, neg_item, generator, training)
-        bpr = -(F.logsigmoid(pos_scores - neg_scores) * weight).sum()
+        bpr = -batch_sum(F.logsigmoid(pos_scores - neg_scores) * weight)
 
         ingre_table = self._ingre_table()
         # the reference's l2 is sum(t ** 2), l2_loss halves it: x 2

@@ -7,7 +7,11 @@ reference FoodRec/runner.py:16-28):
 
 runs `quick_start`'s grid search on the card; it raises where CUDA is
 absent. Flags it does not know are ignored, as the JAX package's runner
-ignores them.
+ignores them. On N cards, with `mesh_shape` set in a yaml the config reads:
+
+    torchrun --nproc_per_node=N -m foodrec_tpu_torch.runner -m MODEL ...
+
+(rank 0 writes the log, the checkpoints and the top-k lists).
 """
 
 import argparse

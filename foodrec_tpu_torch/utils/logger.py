@@ -5,6 +5,7 @@
 import logging
 import os
 
+from foodrec_tpu_torch.parallel.mesh import process_rank
 from foodrec_tpu_torch.utils.misc import get_local_time
 
 _LEVELS = {
@@ -19,7 +20,15 @@ _LEVELS = {
 def init_logger(config):
     """Log to the console and to `{log_root}/{model}-{dataset}-{time}.log`;
     the root logger's handlers are replaced, so a second experiment in the
-    same process logs to its own file only."""
+    same process logs to its own file only. Under a launcher only rank 0
+    logs; the other ranks print warnings and errors only."""
+    root = logging.getLogger()
+    for handler in root.handlers:
+        handler.close()
+    root.handlers.clear()
+    if process_rank() != 0:
+        root.setLevel(logging.WARNING)
+        return
     log_root = config["log_root"] or "./log/"
     os.makedirs(log_root, exist_ok=True)
 
@@ -46,11 +55,6 @@ def init_logger(config):
     sh.setLevel(level)
     sh.setFormatter(sformatter)
 
-    root = logging.getLogger()
     root.setLevel(level)
-    # re-init safe: close and drop the handlers of a previous experiment
-    for handler in root.handlers:
-        handler.close()
-    root.handlers.clear()
     root.addHandler(sh)
     root.addHandler(fh)

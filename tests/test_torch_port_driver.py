@@ -390,14 +390,15 @@ def test_checkpoint_name_equals_jax(untrained):
 
 
 def test_unported_config_keys_raise(synth_root, cikm):
-    """The device mesh, the one key the port does not read yet, raises in
-    the Trainer where the JAX package reads it, instead of a run that goes
-    on as if it were unset."""
+    """A mesh_shape whose size differs from the world size raises in the
+    Trainer, where the JAX package's make_mesh raises for too few devices:
+    here one process without a launcher and a mesh of two ranks (the mesh
+    itself trains in tests/test_torch_port_mesh.py)."""
     from foodrec_tpu_torch.engine.trainer import Trainer
 
     cfg = _port_config(synth_root, "CIKM_Model", {"mesh_shape": {"data": 2}})
     model = _port_model(cikm[0], cikm[1])
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
+    with pytest.raises(ValueError, match="mesh_shape"):
         Trainer(cfg, model)
 
 
