@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # all phases
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
     python3 chip_smoke.py --mesh-only     # phases 1, 2 and 10
+    python3 chip_smoke.py --pipeline-only # phases 1, 2 and 11
 
 Drives the port's serving and training paths for CIKM_Model at full width
 (embedding 64, 2 recipe-ingredient hops + 1 user-item hop, a 2-layer post-LN
@@ -79,11 +80,26 @@ clusters), with random weights from seed 999:
      distributed_full_sort_topk, equal ids and metrics; which collectives
      gloo runs on CUDA tensors; (d) dryrun_multichip(4) over gloo. Each
      rank's launches are summed into the record
+ 11. the offline data pipeline, in build/pipeline/: (a) a raw Food.com tree
+     at the Kaggle release's size (1,132,367 interactions, 231,637 recipes,
+     178,265 with ingredient ids, ~8k ingredient names), generated from a
+     seed; (b) the port's preprocess CLI on it, the k-means (2,000 clusters
+     of the 2048-d image and the 512-d text features) on the card, each
+     stage timed; every contract file, FoodData on the output, each
+     k-means' inertia below its k-means++ init's, the first cluster edge of
+     1,000 items the nearest centre in float64; (c) the text extractor with
+     an encoder of T5-small's width over every ingredient name and title,
+     and the image extractor with a conv backbone over generated JPEGs,
+     each against the same call on the CPU; (d) CIKM_Model's CLI for one
+     epoch and 20 Adam steps of CLUSSL on the 2,000 clusters and centres
+     the card wrote, through the kernel, launches counted, the kernel held
+     against plain (forward f32 and bf16, gradient, bitwise repeat) on each
+     of their graphs first. Its stage times are a JSON line of their own
 
 Any failed check raises and the script exits non-zero. The line before the
 last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. The kernel build lands in build/kernels/ and
-the dataset in build/smoke_data/, both gitignored.
+the datasets in build/smoke_data/ and build/pipeline/, all gitignored.
 """
 
 import argparse
@@ -999,7 +1015,7 @@ def reset_launches(kernels):
 
 
 def zoo_hops(model):
-    """{propagator: hops per forward} of a phase 7 model."""
+    """{propagator: hops per forward} of a phase 7 or phase 11 model."""
     name = type(model).__name__
     if name in ("LightGCN", "BM3"):
         return {"prop": model.n_layers}
@@ -1008,6 +1024,8 @@ def zoo_hops(model):
         return {"ii_prop": model.n_layers, "ir_prop": agg, "ru_prop": agg}
     if name == "SCHGN":
         return {"gcn_prop": 1}
+    if name == "CIKM_Model":
+        return {"ri_prop": model.n_layers, "ui_prop": model.ui_layers}
     return {"ingre_prop": model.n_ri_layers, "image_prop": model.n_ri_layers,
             "text_prop": model.n_ri_layers, "ui_prop": model.n_ui_layers}
 
@@ -1344,12 +1362,14 @@ def phase_gate(torch):
     return dict(auc=auc, ndcg20=ndcg, train_s=train_s)
 
 
-def driver_cli(torch, kernels):
+def driver_cli(torch, kernels, dataset=DATASET, data_root=DATA_ROOT,
+               epochs=DRIVER_EPOCHS, tag="8 driver"):
     """`python -m foodrec_tpu_torch.runner -m CIKM_Model -d FoodcomSynth
-    --epochs 2`, in process: one combination, its best checkpoint at the JAX
-    package's name, the log with its BEST block, every propagator on the
-    kernel, and 3 forward + 3 backward launches a step plus 3 an eval_cache.
-    Returns the run's trainer, test metrics, launches and times."""
+    --epochs 2` (or `dataset` under `data_root` for `epochs`), in process:
+    one combination, its best checkpoint at the JAX package's name, the log
+    with its BEST block, every propagator on the kernel, and 3 forward + 3
+    backward launches a step plus 3 an eval_cache. Returns the run's
+    trainer, test metrics, launches and times."""
     from foodrec_tpu_torch import runner
     from foodrec_tpu_torch.engine import quick_start as qs
 
@@ -1383,8 +1403,8 @@ def driver_cli(torch, kernels):
     t0 = time.perf_counter()
     try:
         hyper_tuple, valid, test = runner.main([
-            "-m", "CIKM_Model", "-d", DATASET, "--data_path", DATA_ROOT + "/",
-            "--epochs", str(DRIVER_EPOCHS),
+            "-m", "CIKM_Model", "-d", dataset, "--data_path", data_root + "/",
+            "--epochs", str(epochs),
             "--neg_sample_num", str(FOODCOM_SCALE["neg_num"])])
     finally:
         qs.get_trainer = get_trainer
@@ -1400,7 +1420,7 @@ def driver_cli(torch, kernels):
     if set(impls.values()) != {"kernel"}:
         raise AssertionError(f"propagators {impls}")
     ckpts = os.listdir("ckp")
-    want_ckpt = f"CIKM_Model-{DATASET}-['seed']=({SEED},).pkl"
+    want_ckpt = f"CIKM_Model-{dataset}-['seed']=({SEED},).pkl"
     if ckpts != [want_ckpt]:
         raise AssertionError(f"checkpoints {ckpts}, expected [{want_ckpt}]")
     (log_name,) = os.listdir("log")
@@ -1408,28 +1428,28 @@ def driver_cli(torch, kernels):
         text = f.read()
     if "█ BEST █" not in text or "Saving current best" not in text:
         raise AssertionError(f"{log_name} has no BEST block")
-    check_unit_metrics(test, "driver test")
-    check_unit_metrics(valid, "driver valid")
+    check_unit_metrics(test, f"{tag} test")
+    check_unit_metrics(valid, f"{tag} valid")
 
     n_epochs = len(trainer.train_loss_dict)
     n_evals = n_epochs // trainer.eval_step + 1  # valid evals + the test
     hops = model.n_layers + model.ui_layers
     want = {"spmm_csr": hops * (n_epochs * trainer.n_batches + n_evals),
             "spmm_csr_bwd": hops * n_epochs * trainer.n_batches}
-    log(f"[8 driver] cli: {n_epochs} epochs x {trainer.n_batches} steps, "
+    log(f"[{tag}] cli: {n_epochs} epochs x {trainer.n_batches} steps, "
         f"{n_evals} eval_cache calls; launches {launches} (expected {want}); "
         f"impls {impls}")
-    if n_epochs != DRIVER_EPOCHS or launches != want:
-        raise AssertionError(f"expected {want} launches over {DRIVER_EPOCHS} "
+    if n_epochs != epochs or launches != want:
+        raise AssertionError(f"expected {want} launches over {epochs} "
                              f"epochs, got {launches} over {n_epochs}")
     setup_s = first_epoch[0] - t0
-    log(f"[8 driver] cli: wall {cli_s:.3f} s, set-up (config, data, device "
+    log(f"[{tag}] cli: wall {cli_s:.3f} s, set-up (config, data, device "
         f"arrays, model) {setup_s:.3f} s, epochs "
         f"{[round(e, 3) for e in epoch_s]} s "
         f"({trainer.n_batches / epoch_s[-1]:.1f} steps/s), best {hyper_tuple}, "
         f"checkpoint ckp/{want_ckpt}, log log/{log_name}")
-    log(f"[8 driver] cli valid: {json.dumps(valid)}")
-    log(f"[8 driver] cli test: {json.dumps(test)}")
+    log(f"[{tag}] cli valid: {json.dumps(valid)}")
+    log(f"[{tag}] cli test: {json.dumps(test)}")
     return dict(trainer=trainer, test=test, launches=launches, cli_s=cli_s,
                 setup_s=setup_s, epoch_s=epoch_s, ckpt=os.path.join("ckp",
                                                                      want_ckpt))
@@ -2621,6 +2641,552 @@ def phase_mesh(torch, kernels):
     return out, by_path
 
 
+# phase 11: the offline pipeline on the card. A raw Food.com tree at the size
+# of the Kaggle release ("Food.com Recipes and Interactions", Shuyang Li:
+# 1,132,367 interactions by 226,570 users on 231,637 recipes, 178,265 of
+# them preprocessed with ingredient ids, ~8k ingredients), generated from a
+# seed, goes through the port's preprocess CLI (the k-means on the card),
+# then CIKM_Model and CLUSSL train on what it wrote, through the kernel.
+PIPELINE_ROOT = os.path.join(ROOT, "build", "pipeline")
+PIPELINE_DATASET = "FoodcomRaw"
+FOODCOM_RAW = dict(
+    n_rows=1_132_367, n_users=226_570, n_recipes=231_637, n_pp=178_265,
+    n_ingredients=8_023, max_recipe_id=537_716, first_day="2000-01-25",
+    last_day="2018-12-20",
+    # Zipf (exponent, rank offset) of user activity and recipe popularity
+    # beyond each user's and recipe's first interaction, tuned so that the
+    # 5-core and the temporal split land near Foodcom's processed footprint
+    user_zipf=(1.15, 10), item_zipf=(0.75, 100), seed=2024)
+FOODCOM_FOOTPRINT = (7596, 29943)   # users x items, BASELINE.md:18
+PIPELINE_CLUSTERS = 2000            # the CLI's default, CLUSSL's shipped n
+FOOTPRINT_TOL = 0.25
+NEG_NUM = 500                       # the CLI's --n-neg default
+PIPELINE_STEPS = 20                 # CLUSSL Adam steps on the output
+EDGE_CHECK_ITEMS = 1000
+EXTRACT_CHECK_ROWS = 64
+EXTRACT_REL_TOL = 1e-4
+N_IMAGES = 256
+# the text encoder at T5-small's width (random weights, seed SEED)
+T5_SMALL = dict(layers=6, d_model=512, heads=8, d_ff=2048, max_len=64)
+# words of the generated names; none holds a keyword of
+# preprocess.INGRE_KEYWORD_SETS, which are put in on purpose
+INGREDIENT_NOUNS = (
+    "salt", "sugar", "flour", "butter", "egg", "onion", "garlic", "milk",
+    "oil", "tomato", "cheese", "chicken", "beef", "rice", "bean", "lemon",
+    "carrot", "potato", "cream", "vinegar", "honey", "pasta", "spinach",
+    "mushroom", "celery", "ginger", "cinnamon", "basil", "parsley", "thyme",
+    "pork", "shrimp", "salmon", "tofu", "corn", "pea", "apple", "banana",
+    "yogurt", "walnut", "almond", "oat", "broth", "lime", "cabbage", "squash",
+    "zucchini", "peanut", "coconut", "vanilla")
+INGREDIENT_MODS = (
+    "", "fresh", "ground", "chopped", "low-fat", "frozen", "canned",
+    "smoked", "sweet", "hot", "baby", "whole", "light", "wild", "unsalted",
+    "organic", "grated", "toasted", "cooked", "plain")
+TITLE_WORDS = (
+    "easy", "best", "quick", "spicy", "creamy", "baked", "grilled",
+    "classic", "homemade", "healthy", "cheesy", "crispy", "slow cooker",
+    "one pot", "summer", "winter", "holiday", "family", "weeknight",
+    "casserole", "soup", "salad", "stew", "pie", "cake", "bread", "tacos",
+    "curry", "muffins", "cookies", "chili", "skillet", "bake", "bowl",
+    "sandwich", "wraps", "noodles", "pancakes", "dip", "sauce")
+# foodcom's nutrition list: calories, then %DV of fat, sugar, sodium,
+# protein, saturated fat and carbohydrates; lognormal medians and spreads
+NUTRITION_MEDIAN = np.array([350.0, 25.0, 30.0, 20.0, 25.0, 30.0, 10.0])
+NUTRITION_SIGMA = np.array([0.7, 0.9, 1.1, 1.0, 0.9, 1.0, 0.8])
+
+
+def zipf_draws(rng, n, size, exponent, offset):
+    """`size` draws over n categories, P(rank r) ∝ (r + offset)^-exponent,
+    the ranks a random permutation of the categories."""
+    p = 1.0 / (np.arange(n) + offset) ** exponent
+    return rng.permutation(n)[rng.choice(n, size, p=p / p.sum())]
+
+
+def foodcom_raw_tree(raw_dir, seed=FOODCOM_RAW["seed"]):
+    """Write a raw Food.com tree of FOODCOM_RAW's size under raw_dir: the
+    columns preprocess_cli's loader reads (RAW_interactions.csv: user_id,
+    recipe_id, date; RAW_recipes.csv: name, id, nutrition; PP_recipes.csv:
+    id, ingredient_ids; ingr_map.pkl: id, processed). Zipf user activity and
+    recipe popularity, repeated (user, recipe) pairs dropped, day-resolution
+    dates over 2000-2018 (heavy ties), each name keyword of the ii graph in
+    ~3% of the ingredient names. Returns the counts, the ingredient names
+    by id and the titles by recipe id (for the text extractor)."""
+    import csv
+    import datetime
+
+    import pandas as pd
+
+    c = FOODCOM_RAW
+    rng = np.random.default_rng(seed)
+    os.makedirs(raw_dir, exist_ok=True)
+    recipe_ids = np.sort(rng.choice(c["max_recipe_id"] - 37, c["n_recipes"],
+                                    replace=False) + 38)
+    user_ids = np.unique(rng.integers(1, 2 ** 31 - 1, 2 * c["n_users"]))
+    user_ids = rng.permutation(user_ids)[:c["n_users"]]
+
+    # every user and recipe once (the release has no empty one), then Zipf
+    n0 = max(c["n_users"], c["n_recipes"])
+    m = int(c["n_rows"] * 1.3)
+    u = np.concatenate([rng.permutation(np.concatenate([
+        np.arange(c["n_users"]),
+        rng.integers(0, c["n_users"], n0 - c["n_users"])])),
+        zipf_draws(rng, c["n_users"], m, *c["user_zipf"])])
+    i = np.concatenate([rng.permutation(np.concatenate([
+        np.arange(c["n_recipes"]),
+        rng.integers(0, c["n_recipes"], n0 - c["n_recipes"])])),
+        zipf_draws(rng, c["n_recipes"], m, *c["item_zipf"])])
+    _, first = np.unique(u.astype(np.int64) * c["n_recipes"] + i,
+                         return_index=True)
+    first = np.sort(first)[:c["n_rows"]]
+    u, i = u[first], i[first]
+    d0 = datetime.date.fromisoformat(c["first_day"])
+    n_days = (datetime.date.fromisoformat(c["last_day"]) - d0).days + 1
+    days = np.arange(n_days)
+    w = 0.15 + np.exp(-0.5 * ((days - 0.45 * n_days) / (0.15 * n_days)) ** 2)
+    day_str = [(d0 + datetime.timedelta(days=int(k))).isoformat()
+               for k in days]
+    day = rng.choice(n_days, len(u), p=w / w.sum())
+    with open(os.path.join(raw_dir, "RAW_interactions.csv"), "w",
+              newline="") as f:
+        f.write("user_id,recipe_id,date\n")
+        f.write("".join(f"{a},{b},{day_str[k]}\n" for a, b, k in zip(
+            user_ids[u].tolist(), recipe_ids[i].tolist(), day.tolist())))
+
+    mods = rng.choice(INGREDIENT_MODS, c["n_ingredients"])
+    nouns = rng.choice(INGREDIENT_NOUNS, c["n_ingredients"])
+    names = [f"{a} {b} {k}".strip() for k, (a, b) in enumerate(
+        zip(mods.tolist(), nouns.tolist()))]
+    from foodrec_tpu_torch.data.preprocess import INGRE_KEYWORD_SETS
+
+    for kw in (k for s in INGRE_KEYWORD_SETS for k in s):
+        for j in np.flatnonzero(rng.random(c["n_ingredients"]) < 0.03):
+            names[j] = f"{kw} {names[j]}"
+    pd.DataFrame({"id": np.arange(c["n_ingredients"]),
+                  "processed": names}).to_pickle(
+        os.path.join(raw_dir, "ingr_map.pkl"))
+
+    pp_ids = np.sort(rng.choice(recipe_ids, c["n_pp"], replace=False))
+    n_ing = np.minimum(1 + rng.poisson(8, c["n_pp"]), 40)
+    ing = zipf_draws(rng, c["n_ingredients"], int(n_ing.sum()), 0.9, 5)
+    starts = np.concatenate([[0], np.cumsum(n_ing)[:-1]]).tolist()
+    ing = ing.tolist()
+    with open(os.path.join(raw_dir, "PP_recipes.csv"), "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(["id", "ingredient_ids"])
+        out.writerows(
+            (r, "[" + ", ".join(map(str, dict.fromkeys(ing[s:s + k]))) + "]")
+            for r, s, k in zip(pp_ids.tolist(), starts, n_ing.tolist()))
+
+    nutri = np.round(NUTRITION_MEDIAN * np.exp(
+        NUTRITION_SIGMA * rng.standard_normal((c["n_recipes"], 7))), 1)
+    words = rng.choice(TITLE_WORDS, (c["n_recipes"], 4))
+    n_words = rng.integers(2, 5, c["n_recipes"])
+    titles = {}
+    with open(os.path.join(raw_dir, "RAW_recipes.csv"), "w", newline="") as f:
+        out = csv.writer(f)
+        out.writerow(["name", "id", "nutrition"])
+        for r, ws, k, nu in zip(recipe_ids.tolist(), words.tolist(),
+                                n_words.tolist(), nutri.tolist()):
+            title = " ".join(ws[:k]) + (f", \"no. {r % 97}\"" if r % 5 == 0
+                                        else "")
+            titles[r] = title
+            out.writerow([title, r, "[" + ", ".join(f"{v:.1f}" for v in nu)
+                          + "]"])
+    counts = dict(interactions=len(u), users=len(np.unique(u)),
+                  recipes=c["n_recipes"], recipes_in_interactions=len(
+                      np.unique(i)), pp_recipes=c["n_pp"],
+                  ingredients=c["n_ingredients"], days=n_days)
+    return counts, dict(enumerate(names)), titles
+
+
+class CharTokenizer:
+    """The tokenizer call of t5_text_features (texts -> input_ids and
+    attention_mask, padded to the batch's longest, truncated to max_len) on
+    UTF-8 bytes: id = byte + 1, 0 pads."""
+
+    def __init__(self, torch, max_len):
+        self.torch, self.max_len = torch, max_len
+
+    def __call__(self, texts, return_tensors=None, padding=True,
+                 truncation=True):
+        seqs = [[b + 1 for b in t.encode("utf-8")][:self.max_len] or [1]
+                for t in texts]
+        width = max(len(s) for s in seqs)
+        ids = self.torch.zeros((len(seqs), width), dtype=self.torch.long)
+        mask = self.torch.zeros_like(ids)
+        for r, s in enumerate(seqs):
+            ids[r, :len(s)] = self.torch.tensor(s)
+            mask[r, :len(s)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def t5_small_encoder(torch, seed=SEED):
+    """A pre-LN transformer encoder at T5-small's width (T5_SMALL), random
+    weights from `seed`, returning `.last_hidden_state` as T5EncoderModel
+    does; byte ids in, learned positions."""
+    from types import SimpleNamespace
+
+    cfg = T5_SMALL
+    nn = torch.nn
+
+    class Encoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(257, cfg["d_model"])
+            self.pos = nn.Embedding(cfg["max_len"], cfg["d_model"])
+            layer = nn.TransformerEncoderLayer(
+                cfg["d_model"], cfg["heads"], cfg["d_ff"], dropout=0.0,
+                batch_first=True, norm_first=True)
+            self.layers = nn.TransformerEncoder(
+                layer, cfg["layers"], enable_nested_tensor=False)
+            self.norm = nn.LayerNorm(cfg["d_model"])
+
+        def forward(self, input_ids=None, attention_mask=None):
+            pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+            h = self.embed(input_ids) + self.pos(pos)[None]
+            h = self.layers(h, src_key_padding_mask=attention_mask == 0)
+            return SimpleNamespace(last_hidden_state=self.norm(h))
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return Encoder().eval()
+
+
+def conv_backbone(torch, seed=SEED):
+    """A conv stack of output width 2048 (ResNet-50's, fc = Identity),
+    random weights from `seed`."""
+    nn = torch.nn
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return nn.Sequential(
+            nn.Conv2d(3, 64, 7, 2, 3), nn.ReLU(), nn.MaxPool2d(3, 2, 1),
+            nn.Conv2d(64, 256, 3, 2, 1), nn.ReLU(),
+            nn.Conv2d(256, 1024, 3, 2, 1), nn.ReLU(),
+            nn.Conv2d(1024, 2048, 3, 2, 1), nn.AdaptiveAvgPool2d(1),
+            nn.Flatten()).eval()
+
+
+def rel_err(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def pipeline_extractors(torch, texts, image_dir):
+    """(c) t5_text_features over `texts` with the T5-small-width encoder
+    and resnet50_image_features over N_IMAGES generated JPEGs with the conv
+    backbone, on the card; EXTRACT_CHECK_ROWS rows of each against the same
+    call on the CPU."""
+    from PIL import Image
+
+    from foodrec_tpu_torch.data import preprocess as pp
+
+    tag = "11 extract"
+    tok = CharTokenizer(torch, T5_SMALL["max_len"])
+    enc = t5_small_encoder(torch)
+    t0 = time.perf_counter()
+    feats = pp.t5_text_features(texts, tokenizer=tok, encoder=enc)
+    text_s = time.perf_counter() - t0
+    ref = pp.t5_text_features(texts[:EXTRACT_CHECK_ROWS], tokenizer=tok,
+                              encoder=enc, device="cpu")
+    text_err = rel_err(feats[:EXTRACT_CHECK_ROWS], ref)
+    log(f"[{tag}] text: {len(texts)} texts -> {feats.shape} "
+        f"{feats.dtype} in {text_s:.3f} s ({len(texts) / text_s:.0f} "
+        f"texts/s); {EXTRACT_CHECK_ROWS} rows against the CPU: max rel "
+        f"{text_err:.3e}")
+    if feats.shape != (len(texts), T5_SMALL["d_model"]) or \
+            not np.isfinite(feats).all() or not text_err <= EXTRACT_REL_TOL:
+        raise AssertionError(f"{tag}: text features {feats.shape}, "
+                             f"rel err {text_err}")
+
+    rng = np.random.default_rng(SEED)
+    os.makedirs(image_dir, exist_ok=True)
+    paths = []
+    for k in range(N_IMAGES):
+        h, w = rng.integers(160, 320, 2)
+        ramp = np.linspace(0, 1, int(w))[None, :, None] * rng.random(3)
+        img = (255 * np.clip(ramp + 0.3 * rng.random((int(h), int(w), 3)),
+                             0, 1)).astype(np.uint8)
+        paths.append(os.path.join(image_dir, f"{k}.jpg"))
+        Image.fromarray(img).save(paths[-1])
+    mean = np.array([0.485, 0.456, 0.406], np.float32)
+    std = np.array([0.229, 0.224, 0.225], np.float32)
+
+    def transform(img):
+        x = np.asarray(img.resize((224, 224)), np.float32) / 255.0
+        return torch.from_numpy((x - mean) / std).permute(2, 0, 1)
+
+    backbone = conv_backbone(torch)
+    t0 = time.perf_counter()
+    img_feats = pp.resnet50_image_features(paths, backbone=backbone,
+                                           transform=transform)
+    image_s = time.perf_counter() - t0
+    n_check = EXTRACT_CHECK_ROWS // 4
+    ref = pp.resnet50_image_features(paths[:n_check], backbone=backbone,
+                                     transform=transform, device="cpu")
+    image_err = rel_err(img_feats[:n_check], ref)
+    log(f"[{tag}] image: {N_IMAGES} JPEGs -> {img_feats.shape} in "
+        f"{image_s:.3f} s ({N_IMAGES / image_s:.0f} images/s); {n_check} "
+        f"rows against the CPU: max rel {image_err:.3e}")
+    if img_feats.shape != (N_IMAGES, 2048) or \
+            not np.isfinite(img_feats).all() or \
+            not image_err <= EXTRACT_REL_TOL:
+        raise AssertionError(f"{tag}: image features {img_feats.shape}, "
+                             f"rel err {image_err}")
+    return dict(text_s=text_s, n_texts=len(texts), text_rel_err=text_err,
+                image_s=image_s, n_images=N_IMAGES, image_rel_err=image_err)
+
+
+def pipeline_outputs(torch, out):
+    """(b)'s checks: every contract file, FoodData on it, each k-means
+    below its own init's inertia, and the first edge of EDGE_CHECK_ITEMS
+    items the nearest centre in float64."""
+    from foodrec_tpu_torch.config import Config
+    from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
+
+    tag = "11 pipeline"
+    base = out["base"]
+    want = ["data.train.rating", "data.valid.rating", "data.test.rating",
+            "data.valid.negative", "data.test.negative",
+            "data_image_features_float.npy", "data_text_features_t5.npy",
+            "data_ingre_code_file.npy", "data_id_ingre_num_file",
+            "ri_graph.txt", "mapping_dict.pkl", "inter_coo_matrix.pkl",
+            *(f"graph_edge/{n}" for n in (
+                "ri_graph.txt", "ii_graph.txt", "ur_graph.txt",
+                "rc_graph.txt", "recipe_cal_level_dict.pkl",
+                "recipe_cal_level_map.pkl", "rh_graph.txt",
+                "recipe_health_level_dict.pkl",
+                "recipe_health_level_multi_hot_dict.pkl",
+                "rr_health_graph.txt", "health_sample_dict.pkl")),
+            *(f"{d}/{m}_center.npy" for d in ("cluster", "mm_cluster")
+              for m in ("image", "text")),
+            *(f"cluster/{m}_cluster_edge.txt" for m in ("image", "text"))]
+    sizes = {f: os.path.getsize(os.path.join(base, f))
+             if os.path.isfile(os.path.join(base, f)) else 0 for f in want}
+    if not all(sizes.values()):
+        raise AssertionError(f"{tag}: missing or empty: "
+                             f"{[f for f, s in sizes.items() if not s]}")
+    cfg = Config("CIKM_Model", PIPELINE_DATASET, {
+        "data_path": PIPELINE_ROOT + "/", "neg_sample_num": NEG_NUM,
+        "load_IngreIngre_graph": True, "load_UserRecipe_graph": True,
+        "use_cal_level": True, "load_RecipeCalories_graph": True,
+        "load_RecipeHealth_graph": True, "health_neg_sample": True,
+        "load_TextCluster_graph": True, "load_ImageCluster_graph": True})
+    derive_data_paths(cfg, PIPELINE_DATASET)
+    t0 = time.perf_counter()
+    data = FoodData(cfg)
+    load_s = time.perf_counter() - t0
+    n_users, n_items = out["n_users"], out["n_items"]
+    shapes = dict(users=data.num_users, items=data.num_items,
+                  ingredients=data.num_ingredients, train=data.n_train,
+                  valid=data.n_valid, test=data.n_test,
+                  image=list(data.embImage.shape),
+                  text=list(data.embText.shape),
+                  ii_edges=len(data.iIngre_triples),
+                  ur_edges=len(data.uRecipe_triples),
+                  calorie_levels=data.num_calories_level,
+                  health_levels=data.num_health_level)
+    log(f"[{tag}] contract files {len(want)} present, "
+        f"{sum(sizes.values()) / 2 ** 20:.1f} MiB; FoodData in "
+        f"{load_s:.1f} s: {json.dumps(shapes)}")
+    if (data.num_users, data.num_items) != (n_users, n_items) or \
+            data.embImage.shape != (n_items, 2048) or \
+            data.embText.shape != (n_items, 512):
+        raise AssertionError(f"{tag}: FoodData {shapes} against "
+                             f"{n_users} x {n_items}")
+    far = [abs(n / f - 1) for n, f in zip((n_users, n_items),
+                                          FOODCOM_FOOTPRINT)]
+    if max(far) > FOOTPRINT_TOL:
+        raise AssertionError(f"{tag}: {n_users} x {n_items} is off "
+                             f"Foodcom's {FOODCOM_FOOTPRINT} by {far}")
+
+    kmeans = {}
+    rng = np.random.default_rng(SEED)
+    for m in ("image", "text"):
+        km = out["kmeans"][m]
+        x = np.load(os.path.join(base, f"data_{m}_features_"
+                                 + ("float" if m == "image" else "t5")
+                                 + ".npy"))
+        centers = np.load(os.path.join(base, "cluster", f"{m}_center.npy"))
+        edges = np.loadtxt(os.path.join(base, "cluster",
+                                        f"{m}_cluster_edge.txt"),
+                           dtype=np.int64)
+        idx = np.sort(rng.choice(n_items, EDGE_CHECK_ITEMS, replace=False))
+        xs = torch.as_tensor(x[idx], dtype=torch.float64, device="cuda")
+        cs = torch.as_tensor(centers, dtype=torch.float64, device="cuda")
+        d = torch.cdist(xs, cs).square().cpu().numpy()
+        first = edges[idx * 6, 1]
+        nearest = d.min(1)
+        gap = d[np.arange(len(idx)), first] - nearest
+        ties = int((first != d.argmin(1)).sum())
+        # a float32 distance on the card may order two centres whose
+        # float64 distances differ by less than its rounding; a centre may
+        # sit on an item (distance 0), where only a gap of 0 passes
+        worst = float(np.where(gap == 0, 0.0, gap / np.maximum(
+            nearest, np.finfo(np.float64).tiny)).max())
+        kmeans[m] = dict(inertia=km.inertia, init_inertia=km.init_inertia,
+                         n_steps=km.n_steps, centers=list(centers.shape),
+                         centers_dtype=str(centers.dtype),
+                         edges=len(edges), first_edge_not_nearest=ties,
+                         worst_rel_gap=worst)
+        log(f"[{tag}] k-means {m}: {centers.shape} {centers.dtype}, "
+            f"{km.n_steps} steps, inertia {km.inertia:.6e} < its k-means++ "
+            f"init's {km.init_inertia:.6e}; {len(edges)} edges; first edge "
+            f"of {EDGE_CHECK_ITEMS} items against the float64 nearest "
+            f"centre: {ties} differ, worst relative distance gap {worst:.3e}")
+        if not km.inertia < km.init_inertia:
+            raise AssertionError(f"{tag}: {m} inertia {km.inertia} >= init "
+                                 f"{km.init_inertia}")
+        if centers.dtype != np.float32 or \
+                centers.shape != (PIPELINE_CLUSTERS, x.shape[1]) \
+                or edges.shape != (6 * n_items, 2) or not worst <= 1e-5:
+            raise AssertionError(f"{tag}: {m} centers {centers.shape} "
+                                 f"{centers.dtype}, edges {edges.shape}, "
+                                 f"worst gap {worst}")
+    return shapes, kmeans
+
+
+def graph_errors(graphs):
+    """{"max_abs_err", "grad_max_abs_err"} of zoo_graphs' checks."""
+    return dict(max_abs_err=max(g["err"] for g in graphs.values()),
+                grad_max_abs_err=max(g["grad_err"] for g in graphs.values()))
+
+
+def pipeline_clussl(torch, kernels, spmm):
+    """(d) PIPELINE_STEPS Adam steps of PRICAI_ModelX (CLUSSL) with its
+    shipped 2,000 clusters and the centres as prototypes, on the card's
+    cluster/ and mm_cluster/ files, through the kernel, launches counted.
+    Before the steps, the kernel is held against plain on each of its
+    graphs (zoo_graphs)."""
+    from foodrec_tpu_torch.config import Config
+    from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
+    from foodrec_tpu_torch.data.device import DeviceData
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    tag = "11 clussl"
+    cfg = Config("PRICAI_ModelX", PIPELINE_DATASET, {
+        "data_path": PIPELINE_ROOT + "/", "seed": SEED,
+        "neg_sample_num": NEG_NUM, "spmm_impl": "kernel",
+        "n_cluster": PIPELINE_CLUSTERS, "use_center_embedding": True})
+    derive_data_paths(cfg, PIPELINE_DATASET)
+    data = FoodData(cfg)
+    data.device_data = DeviceData.from_food_data(data)
+    model = option_model(torch, cfg, data)
+    trainer = Trainer(cfg, model)
+    props = {n: dict(impl=p.impl, n=p.n_nodes, nnz=p.adj.nnz)
+             for n, p in propagators(model).items()}
+    for m in ("image", "text"):   # the prototypes are the card's centres
+        center = np.load(os.path.join(cfg["interaction_data_path"],
+                                      "mm_cluster", f"{m}_center.npy"))
+        proto = getattr(model, f"{m}_prototype_embedding")
+        if not torch.equal(proto.detach().cpu(), torch.from_numpy(center)):
+            raise AssertionError(f"{tag}: {m} prototypes are not "
+                                 f"mm_cluster/{m}_center.npy")
+    graphs, hops = zoo_graphs(torch, kernels, spmm, model, tag,
+                              np.random.default_rng(SEED + 12))
+    checked = graph_errors(graphs)
+    del graphs
+    batches = draw_batches(torch, data.device_data, PIPELINE_STEPS, 512,
+                           SEED + 11)
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    parts = torch.stack([trainer.train_steps([b]) for b in batches])
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    parts = parts.cpu().numpy()
+    want = {"spmm_csr": hops * PIPELINE_STEPS,
+            "spmm_csr_bwd": hops * PIPELINE_STEPS}
+    log(f"[{tag}] {PIPELINE_STEPS} Adam steps in {steps_s:.3f} s, "
+        f"launches {launches} (expected {want}); propagators "
+        f"{json.dumps(props)}; prototypes mm_cluster's centres "
+        f"{tuple(model.image_prototype_embedding.shape)} / "
+        f"{tuple(model.text_prototype_embedding.shape)}; loss parts first / "
+        f"last "
+        f"{parts[0].tolist()} / {parts[-1].tolist()}")
+    if launches != want or not np.isfinite(parts).all() or \
+            {p["impl"] for p in props.values()} != {"kernel"}:
+        raise AssertionError(f"{tag}: launches {launches}, props {props}")
+    return dict(steps=PIPELINE_STEPS, steps_s=steps_s, launches=launches,
+                propagators=props, kernel_vs_plain=checked,
+                loss_first=parts[0].tolist(),
+                loss_last=parts[-1].tolist())
+
+
+def phase_pipeline(torch, kernels, spmm):
+    """Phase 11: (a) the raw Food.com tree, (b) preprocess_cli on the card
+    and its checks, (c) the extractors on the card, (d) CIKM_Model's CLI
+    for one epoch and CLUSSL for PIPELINE_STEPS steps on the output, the
+    kernel held against plain on each of their graphs.
+    Prints its stage times on a JSON line of its own. Returns (summary,
+    {path: launches})."""
+    import pickle
+    import shutil
+
+    from foodrec_tpu_torch.data import preprocess_cli
+
+    tag = "11 pipeline"
+    t_phase = time.perf_counter()
+    shutil.rmtree(PIPELINE_ROOT, ignore_errors=True)
+    raw = os.path.join(PIPELINE_ROOT, "raw")
+    t0 = time.perf_counter()
+    counts, ingre_names, titles = foodcom_raw_tree(raw)
+    gen_s = time.perf_counter() - t0
+    log(f"[{tag}] (a) raw Food.com tree, seed {FOODCOM_RAW['seed']}: "
+        f"{json.dumps(counts)} in {gen_s:.1f} s (host); cut: no images and "
+        f"no extractor weights, so --features synthesize at 2048 / 512")
+
+    t0 = time.perf_counter()
+    out = preprocess_cli.main([
+        "--format", "foodcom", "--raw-dir", raw,
+        "--out", os.path.join(PIPELINE_ROOT, PIPELINE_DATASET),
+        "--n-clusters", str(PIPELINE_CLUSTERS), "--n-neg", str(NEG_NUM),
+        "--health-sample-dict"])
+    cli_s = time.perf_counter() - t0
+    stage_s = out["stage_s"]
+    log(f"[{tag}] (b) preprocess_cli --format foodcom: {out['n_users']} "
+        f"users x {out['n_items']} items (Foodcom {FOODCOM_FOOTPRINT[0]} x "
+        f"{FOODCOM_FOOTPRINT[1]}) in {cli_s:.1f} s; stages (s) "
+        f"{json.dumps({k: round(v, 3) for k, v in stage_s.items()})}")
+    shapes, kmeans = pipeline_outputs(torch, out)
+
+    with open(os.path.join(out["base"], "mapping_dict.pkl"), "rb") as f:
+        _, item_to_idx, ingre_to_idx = pickle.load(f)
+    texts = [ingre_names[g] for g in ingre_to_idx] + \
+        [titles[r] for r in item_to_idx]
+    extract = pipeline_extractors(torch, texts,
+                                  os.path.join(PIPELINE_ROOT, "images"))
+    torch.cuda.empty_cache()
+
+    driver_dir = os.path.join(PIPELINE_ROOT, "driver")
+    os.makedirs(driver_dir)
+    cwd = os.getcwd()
+    os.chdir(driver_dir)
+    try:
+        cli = driver_cli(torch, kernels, dataset=PIPELINE_DATASET,
+                         data_root=PIPELINE_ROOT, epochs=1, tag="11 cikm")
+    finally:
+        os.chdir(cwd)
+    cikm = {k: v for k, v in cli.items() if k not in ("trainer", "ckpt")}
+    # the kernel against plain on the ri and ui graphs the CLI trained on
+    graphs, _ = zoo_graphs(torch, kernels, spmm, cli["trainer"].model,
+                           "11 cikm", np.random.default_rng(SEED + 11))
+    cikm["kernel_vs_plain"] = graph_errors(graphs)
+    del cli, graphs
+    torch.cuda.empty_cache()
+    clussl = pipeline_clussl(torch, kernels, spmm)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    summary = dict(raw=counts, raw_s=gen_s, cli_s=cli_s, stage_s=stage_s,
+                   dataset=shapes, kmeans=kmeans, extract=extract,
+                   cikm_cli=cikm, clussl=clussl, phase_s=phase_s)
+    log(f"[{tag}] phase {phase_s:.1f} s")
+    print(json.dumps({"pipeline": summary}), flush=True)
+    paths = {"pipeline CIKM_Model cli": cikm["launches"],
+             f"pipeline PRICAI_ModelX {PIPELINE_STEPS} steps":
+                 clussl["launches"]}
+    return summary, paths
+
+
 def kernel_entry(per_graph, per_key, **fields):
     """A kernels-JSON entry: times summed over the launches of one `per` on
     the main path's graphs; the power-law graphs (main_path False) stand
@@ -2650,6 +3216,8 @@ def main():
                     help="stop after phase 3 (build and check the kernels)")
     ap.add_argument("--mesh-only", action="store_true",
                     help="phases 1, 2 and 10 (scale-out) alone")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="phases 1, 2 and 11 (the offline pipeline) alone")
     args = ap.parse_args()
 
     import torch
@@ -2664,6 +3232,9 @@ def main():
     if args.mesh_only:
         ensure_dataset()
         phase_mesh(torch, _kernels)
+        return 0
+    if args.pipeline_only:
+        phase_pipeline(torch, _kernels, spmm)
         return 0
     phase_random_graphs(torch, _kernels, spmm)
     power_law = phase_power_law(torch, _kernels, spmm)
@@ -2691,6 +3262,10 @@ def main():
                 zoo["BM3"]["busy_us"])})
     torch.cuda.empty_cache()
     mesh, mesh_paths = phase_mesh(torch, _kernels)
+    torch.cuda.empty_cache()
+    pipeline, pipeline_paths = phase_pipeline(torch, _kernels, spmm)
+    pipeline_checks = [pipeline[k]["kernel_vs_plain"]
+                       for k in ("cikm_cli", "clussl")]
 
     fwd_by_path = {"serve": served["launches"],
                    "train_epoch": trained["launches"]["spmm_csr"]}
@@ -2712,7 +3287,8 @@ def main():
         *((f"frozen {name} train_epoch", o["launches"])
           for name, o in options["frozen"].items()),
         ("LightGCN fit with trace", options["trace"]["launches"])]
-    for path, launches in [*option_paths, *mesh_paths.items()]:
+    for path, launches in [*option_paths, *mesh_paths.items(),
+                           *pipeline_paths.items()]:
         fwd_by_path[path] = launches["spmm_csr"]
         bwd_by_path[path] = launches["spmm_csr_bwd"]
     models = {name: dict(
@@ -2730,12 +3306,16 @@ def main():
             launches_by_path=fwd_by_path,
             max_abs_err=max([g["max_abs_err"] for g in per_graph.values()]
                             + [g["err"] for z in zoo.values()
-                               for g in z["graphs"].values()]),
+                               for g in z["graphs"].values()]
+                            + [c["max_abs_err"] for c in pipeline_checks]),
             per="one CIKM_Model eval_cache: 2 ri_prop hops + 1 ui_prop hop",
             evaluate_test_s=served["eval_test_s"], timing_floor=floor,
             models=models, lightgcn_gate=gate,
             driver={k: v for k, v in driver.items() if k != "resume"},
-            options=options, mesh=mesh),
+            options=options, mesh=mesh,
+            pipeline={k: v for k, v in pipeline.items()
+                      if k in ("raw", "cli_s", "stage_s", "dataset",
+                               "phase_s")}),
         kernel_entry(
             bwd_graph, "launches_per_train_step", name="spmm_csr_bwd",
             replaces="foodrec_tpu/ops/spmm.py:129 (custom VJP :263-273)",
@@ -2743,7 +3323,8 @@ def main():
             launches_by_path=bwd_by_path,
             max_abs_err=max(trained["grad_err"], *(
                 g["grad_err"] for g in power_law.values()), *(
-                z["grad_err"] for z in zoo.values())),
+                z["grad_err"] for z in zoo.values()), *(
+                c["grad_max_abs_err"] for c in pipeline_checks)),
             per="one CIKM_Model train step: 2 ri_prop + 1 ui_prop backward "
                 "hops",
             epoch_s=trained["epoch_s"], epoch_steps=trained["n_steps"],

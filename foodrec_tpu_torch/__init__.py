@@ -17,7 +17,9 @@ ported too: `python -m foodrec_tpu_torch.runner -m MODEL -d DATASET [--mg]`
 runs `engine/quick_start.py`'s grid search, with Mirror Gradient,
 checkpoints and resume, and the by-user, full-sort, sampled and study
 evaluations, and `mesh_shape` scales it out over ranks of
-torch.distributed (`parallel/`). What is left to port is in ROADMAP.md.
+torch.distributed (`parallel/`). The offline pipeline turns raw Food.com,
+Allrecipes or generic files into the dataset (`data/preprocess_cli.py`),
+its k-means on the card. What is left is in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

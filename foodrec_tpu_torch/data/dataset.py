@@ -38,8 +38,8 @@ native extension):
   negative}                         the study splits, under cold_study,
                                     sense_study and health_level_study
 
-Every flag of the JAX package's GraphData is read; what is not ported yet
-is the offline pipeline that writes these files (ROADMAP.md).
+Every flag of the JAX package's GraphData is read; `preprocess.py` (and
+its CLI, `preprocess_cli.py`) writes these files from raw datasets.
 """
 
 import os

@@ -21,6 +21,22 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 """
 
+# the offline pipeline's modules: numpy tables, a torch k-means; pandas
+# only inside the ingr_map.pkl read, the extractors' libraries only when
+# called without injected models
+_PIPELINE = ("foodrec_tpu_torch.data.preprocess",
+             "foodrec_tpu_torch.data.preprocess_cli",
+             "foodrec_tpu_torch.data.kmeans",
+             "foodrec_tpu_torch.data.scrapers")
+_IMPORT_PIPELINE = """
+import importlib, sys
+for name in %r:
+    importlib.import_module(name)
+heavy = ("pandas", "sklearn", "transformers", "torchvision", "jax", "jaxlib",
+         "foodrec_tpu")
+print(sorted(m for m in sys.modules if m.split(".")[0] in heavy))
+""" % (_PIPELINE,)
+
 
 def test_importing_every_port_module_loads_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -29,6 +45,14 @@ def test_importing_every_port_module_loads_no_jax():
                          check=True).stdout.split(maxsplit=1)
     assert int(out[0]) >= 15, out  # every module of the slice was imported
     assert out[1].strip() == "[]", out
+
+
+def test_pipeline_modules_load_no_pandas_sklearn_or_model_libraries():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_PIPELINE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]", out
 
 
 def test_no_source_imports_jax_or_the_jax_package():
