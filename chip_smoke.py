@@ -46,7 +46,9 @@ clusters), with random weights from seed 999:
      eval_cache and one calculate_loss gradient through the kernel and
      through `segment`, 20 Adam steps through each path, one full epoch
      with its launches counted, evaluate on valid and test, full_sort_topk
-     against the plain path, chunk by chunk; the kernel's times on FGCN's,
+     against the plain path, chunk by chunk (SCHGN: also full_sort_predict
+     on that block of users, against score_items over the block and all
+     items, bitwise, else within the bar); the kernel's times on FGCN's,
      CLUSSL's and SCHGN's graphs; and the LightGCN accuracy gate of the JAX
      package's bench (AUC >= 0.80, NDCG@20 >= 0.38 after 30 epochs on the
      structured toy synthetic) through the kernel
@@ -95,6 +97,11 @@ clusters), with random weights from seed 999:
      the card wrote, through the kernel, launches counted, the kernel held
      against plain (forward f32 and bf16, gradient, bitwise repeat) on each
      of their graphs first. Its stage times are a JSON line of their own
+ 12. the flagship step (run right after phase 3): `entry()` of
+     foodrec_tpu_torch.entry, CIKM_Model's summed loss on the toy
+     synthetic of the JAX package's `__graft_entry__.entry`, forward and
+     backward through the kernel (3 + 3 launches), the loss and every
+     gradient against the same step through `segment`, the step's time
 
 Any failed check raises and the script exits non-zero. The line before the
 last is the kernels' JSON record; the last line is
@@ -1183,6 +1190,40 @@ def zoo_topk(torch, model, tag):
     return topk_s, peak_gb
 
 
+def schgn_full_sort_predict(torch, kernels, model, tag):
+    """SCHGN.full_sort_predict on one block of TOPK_USERS users against
+    every item, its launches counted (one fresh _gcn()), held against
+    score_items over the same block and all items from a fresh eval_cache:
+    bitwise, else within the bar. Returns (s, launches, bitwise)."""
+    users = torch.arange(TOPK_USERS, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    scores = model.full_sort_predict(users)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    want = {"spmm_csr": model_hops(model), "spmm_csr_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"full_sort_predict: expected {want} launches, "
+                             f"got {launches}")
+    if scores.shape != (TOPK_USERS, model.n_items) or not bool(
+            scores.isfinite().all()):
+        raise AssertionError(f"full_sort_predict: shape "
+                             f"{tuple(scores.shape)} or a score not finite")
+    block = model.score_items(model.eval_cache(), users,
+                              torch.arange(model.n_items, device="cuda"))
+    bitwise = bool(torch.equal(scores, block))
+    err = 0.0 if bitwise else check_close("full_sort_predict", scores, block)
+    log(f"[{tag}] full_sort_predict {TOPK_USERS} users x {model.n_items} "
+        f"items: {predict_s:.3f} s with its _gcn(), launches {launches}; "
+        f"against score_items over the block: bitwise {bitwise} (max|d| "
+        f"{err:.3e})")
+    del scores, block
+    torch.cuda.empty_cache()
+    return predict_s, launches, bitwise
+
+
 def phase_zoo_model(torch, kernels, spmm, name):
     """Phase 7 for one model at Foodcom scale with its shipped config."""
     from foodrec_tpu_torch.config import Config
@@ -1296,7 +1337,10 @@ def phase_zoo_model(torch, kernels, spmm, name):
     if serve_launches != want:
         raise AssertionError(f"{name}: expected {want} serving launches, got "
                              f"{serve_launches}")
+    predict = (schgn_full_sort_predict(torch, kernels, model, tag)
+               if name == "SCHGN" else None)
     return dict(graphs=graphs, hops=hops, serve=serve_launches["spmm_csr"],
+                full_sort_predict=predict,
                 train=train_launches, epoch_s=epoch_s, n_steps=n_steps,
                 peak_gb=peak_gb, eval_s=eval_s, metrics=metrics,
                 topk_s=topk_s, topk_peak_gb=topk_gb,
@@ -3187,6 +3231,75 @@ def phase_pipeline(torch, kernels, spmm):
     return summary, paths
 
 
+# phase 12: the flagship step of foodrec_tpu_torch.entry (the counterpart of
+# __graft_entry__.entry): CIKM_Model's summed loss on the toy synthetic
+ENTRY_REPS = 20       # timed steps through each path
+
+
+def phase_entry(torch, kernels, card):
+    """Phase 12: `entry()` on the card, `fn` forward and backward through
+    the kernel with its launches counted (CIKM_Model's 1 ui + 2 ri hops: 3
+    forward, 3 backward); the loss and every gradient against the same fn
+    with `segment` (the same generator seed, so the same dropout); the
+    step's wall time through each path."""
+    from foodrec_tpu_torch.entry import entry
+
+    tag = "12 entry"
+    t_phase = time.perf_counter()
+    fn, (model, batch) = entry()
+    impls = {n: p.impl for n, p in propagators(model).items()}
+    if set(impls.values()) != {"kernel"}:
+        raise AssertionError(f"entry's propagators: {impls}")
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = fn(model, batch)
+        loss.backward()
+        return loss.detach(), {k: p.grad for k, p in model.named_parameters()}
+
+    def step_ms():
+        times = []
+        for _ in range(ENTRY_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    loss_k, grads_k = step()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    if launches != {"spmm_csr": 3, "spmm_csr_bwd": 3}:
+        raise AssertionError(f"entry step: expected 3 + 3 launches, got "
+                             f"{launches}")
+    if not bool(loss_k.isfinite()) or any(g is None for g in grads_k.values()):
+        raise AssertionError(f"entry step: loss {loss_k} or a gradient "
+                             "missing")
+    ms = step_ms()
+    kernel_props = swap_propagators(model, "segment")
+    loss_p, grads_p = step()
+    ms_p = step_ms()
+    restore_propagators(model, kernel_props)
+    err = check_close("entry loss", loss_k, loss_p)
+    grad_err = max(check_close(f"entry grad {k}", g, grads_p[k])
+                   for k, g in grads_k.items())
+    phase_s = time.perf_counter() - t_phase
+    log(f"[{tag}] CIKM_Model {model.n_users} users x {model.n_items} items, "
+        f"batch {len(batch['u_id'])}, propagators {impls}: loss "
+        f"{float(loss_k):.6f} (segment {float(loss_p):.6f}, max|d| "
+        f"{err:.3e}), {len(grads_k)} gradient leaves within the bar, max|d| "
+        f"{grad_err:.3e}; launches {launches}")
+    log(f"[{tag}] step (forward + backward) wall median of {ENTRY_REPS}: "
+        f"{ms:.3f} ms through the kernel, {ms_p:.3f} ms through segment; "
+        f"phase {phase_s:.1f} s; {card}")
+    return dict(loss=float(loss_k), loss_segment=float(loss_p),
+                loss_err=err, grad_err=grad_err, launches=launches,
+                step_ms=ms, segment_step_ms=ms_p, phase_s=phase_s)
+
+
 def kernel_entry(per_graph, per_key, **fields):
     """A kernels-JSON entry: times summed over the launches of one `per` on
     the main path's graphs; the power-law graphs (main_path False) stand
@@ -3240,6 +3353,7 @@ def main():
     power_law = phase_power_law(torch, _kernels, spmm)
     if args.kernels_only:
         return 0
+    flagship = phase_entry(torch, _kernels, card)
     served = phase_serving(torch, _kernels, spmm)
     graphs = timed_graphs(served, power_law)
     floor = phase_floor(torch)
@@ -3267,13 +3381,18 @@ def main():
     pipeline_checks = [pipeline[k]["kernel_vs_plain"]
                        for k in ("cikm_cli", "clussl")]
 
-    fwd_by_path = {"serve": served["launches"],
+    fwd_by_path = {"entry step": flagship["launches"]["spmm_csr"],
+                   "serve": served["launches"],
                    "train_epoch": trained["launches"]["spmm_csr"]}
-    bwd_by_path = {"train_epoch": trained["launches"]["spmm_csr_bwd"]}
+    bwd_by_path = {"entry step": flagship["launches"]["spmm_csr_bwd"],
+                   "train_epoch": trained["launches"]["spmm_csr_bwd"]}
     for name, z in zoo.items():
         fwd_by_path[f"{name} serve"] = z["serve"]
         fwd_by_path[f"{name} train_epoch"] = z["train"]["spmm_csr"]
         bwd_by_path[f"{name} train_epoch"] = z["train"]["spmm_csr_bwd"]
+    predict_s, predict_launches, predict_bitwise = zoo["SCHGN"][
+        "full_sort_predict"]
+    fwd_by_path["SCHGN full_sort_predict"] = predict_launches["spmm_csr"]
     for path, launches in (("driver cli", driver["cli"]["launches"]),
                            ("mg train_epoch", driver["mg"]["launches"])):
         fwd_by_path[path] = launches["spmm_csr"]
@@ -3298,6 +3417,8 @@ def main():
         topk_block_s=z["topk_s"], topk_peak_memory_gib=z["topk_peak_gb"],
         busy_share_20_steps=z["busy_share"], metrics=z["metrics"])
         for name, z in zoo.items()}
+    models["SCHGN"]["full_sort_predict"] = dict(
+        users=TOPK_USERS, s=predict_s, bitwise_to_score_items=predict_bitwise)
     record = {"kernels": [
         kernel_entry(
             per_graph, "launches_per_eval_cache", name="spmm_csr",
@@ -3312,7 +3433,7 @@ def main():
             evaluate_test_s=served["eval_test_s"], timing_floor=floor,
             models=models, lightgcn_gate=gate,
             driver={k: v for k, v in driver.items() if k != "resume"},
-            options=options, mesh=mesh,
+            options=options, mesh=mesh, entry=flagship,
             pipeline={k: v for k, v in pipeline.items()
                       if k in ("raw", "cli_s", "stage_s", "dataset",
                                "phase_s")}),
@@ -3324,7 +3445,8 @@ def main():
             max_abs_err=max(trained["grad_err"], *(
                 g["grad_err"] for g in power_law.values()), *(
                 z["grad_err"] for z in zoo.values()), *(
-                c["grad_max_abs_err"] for c in pipeline_checks)),
+                c["grad_max_abs_err"] for c in pipeline_checks),
+                flagship["grad_err"]),
             per="one CIKM_Model train step: 2 ri_prop + 1 ui_prop backward "
                 "hops",
             epoch_s=trained["epoch_s"], epoch_steps=trained["n_steps"],

@@ -311,3 +311,13 @@ class SCHGN(GeneralRecommender):
     @torch.no_grad()
     def score_items(self, cache, users, items):
         return self._score(cache, users[:, None], items[None, :])
+
+    @torch.no_grad()
+    def full_sort_predict(self, user):
+        """Scores [*user.shape, n_items] of the users against the whole
+        catalog from a fresh `_gcn()` (schgn.py:318-345). The faithful
+        interleave mixes the scores of the whole block, as the JAX
+        package's does: a block of B users is not B single-user calls."""
+        items = torch.arange(self.n_items, device=user.device)
+        items = items.view((1,) * user.dim() + (self.n_items,))
+        return self._score(self._gcn(), user[..., None], items)

@@ -4,17 +4,20 @@
 mesh, the batch split over `data` and the 512-d modality tables row-sharded
 over `model`, held against the same step in one process.
 
-    python -m foodrec_tpu_torch.multichip 4
+    python -m foodrec_tpu_torch.multichip 4          # on the card
+    python -m foodrec_tpu_torch.multichip 4 --cpu    # on the CPU, over gloo
 
 The mesh is the JAX package's: {data: n / 2, model: 2} for an even n >= 4,
-else {data: n}. The ranks run on the card (each on cuda:rank % cards) unless
-`device="cpu"`; they talk over NCCL when each has a card of its own and over
-gloo otherwise (NCCL refuses two ranks on one card). The step: the first
-2n train pairs, negatives from a generator seeded 2, Adam at lr 1e-3, the
-encoder's dropout drawn alike on both sides. The bars are the JAX
-package's: the loss within 1e-5 relative, the parameters within 1e-2 in
-global relative L2 and 5e-3 in max |delta| (Adam's first step is about
-sign(g) * lr, so a gradient near 0 may flip in the last bit).
+else {data: n}. The ranks run on the card (each on cuda:rank % cards), and
+the run raises before any rank starts where there is none, unless
+`device="cpu"` (`--cpu`); they talk over NCCL when each has a card of its
+own and over gloo otherwise (NCCL refuses two ranks on one card, and the
+CPU has no NCCL). The step: the first 2n train pairs, negatives from a
+generator seeded 2, Adam at lr 1e-3, the encoder's dropout drawn alike on
+both sides. The bars are the JAX package's: the loss within 1e-5
+relative, the parameters within 1e-2 in global relative L2 and 5e-3 in max
+|delta| (Adam's first step is about sign(g) * lr, so a gradient near 0 may
+flip in the last bit).
 """
 
 import argparse
@@ -85,14 +88,16 @@ def _rank(rank, root, mesh_shape, device):
                 state_rep=state_rep)
 
 
-def dryrun_multichip(n_ranks, device=None, timeout=300, threads=None):
+def dryrun_multichip(n_ranks, device="cuda", timeout=300, threads=None):
     """Run the dry run on n_ranks ranks; prints the JAX package's OK line
     and returns its numbers (with each rank's kernel launches), or
-    raises."""
+    raises: on "cuda" where CUDA is not available, before any rank
+    starts."""
     from foodrec_tpu_torch.data import synthetic
     from foodrec_tpu_torch.parallel.spawn import run_ranks
+    from foodrec_tpu_torch.utils.device import resolve_device
 
-    device = device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(device).type
     mesh_shape = mesh_for(n_ranks)
     backend = ("nccl" if device == "cuda"
                and torch.cuda.device_count() >= n_ranks else "gloo")
@@ -132,4 +137,4 @@ if __name__ == "__main__":
     ap.add_argument("n_ranks", type=int)
     ap.add_argument("--cpu", action="store_true")
     a = ap.parse_args()
-    dryrun_multichip(a.n_ranks, device="cpu" if a.cpu else None)
+    dryrun_multichip(a.n_ranks, device="cpu" if a.cpu else "cuda")

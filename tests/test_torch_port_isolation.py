@@ -18,7 +18,9 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "foodrec_tpu" or m.startswith("foodrec_tpu."))
-print(len(names), bad)
+entry_points = {"foodrec_tpu_torch.entry", "foodrec_tpu_torch.multichip",
+                "foodrec_tpu_torch.runner"}
+print(len(names), int(entry_points <= set(names)), bad)
 """
 
 # the offline pipeline's modules: numpy tables, a torch k-means; pandas
@@ -42,9 +44,10 @@ def test_importing_every_port_module_loads_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120,
-                         check=True).stdout.split(maxsplit=1)
+                         check=True).stdout.split(maxsplit=2)
     assert int(out[0]) >= 15, out  # every module of the slice was imported
-    assert out[1].strip() == "[]", out
+    assert out[1] == "1", out  # the entry points among them
+    assert out[2].strip() == "[]", out
 
 
 def test_pipeline_modules_load_no_pandas_sklearn_or_model_libraries():

@@ -33,11 +33,14 @@ this file, and each test reads its job's result.
     resume_from under the mesh equals the uninterrupted run, at {data: 2}
     and at {model: 2} with gradient clipping, and save_state files cross
     between a mesh and one process
-  * the dry run, dryrun_multichip(4) and (8), prints its OK line
+  * the dry run, dryrun_multichip(4) and (8), prints its OK line; without
+    a card it and its CLI raise unless asked for the CPU
 """
 
 import os
+import runpy
 import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -511,3 +514,25 @@ def test_dryrun_multichip_prints_ok(n_ranks, capsys):
     line = capsys.readouterr().out
     assert f"dryrun_multichip({n_ranks}): OK" in line
     assert out["mesh"] == ({"data": n_ranks // 2, "model": 2})
+
+
+@pytest.mark.parametrize("how", ["function", "cli"])
+def test_dryrun_multichip_raises_without_a_card(how, monkeypatch):
+    """No quiet fallback to the CPU: without CUDA the dry run and `python -m
+    foodrec_tpu_torch.multichip N` raise before any rank starts."""
+    import foodrec_tpu_torch.parallel.spawn as spawn
+    from foodrec_tpu_torch.multichip import dryrun_multichip
+
+    def no_ranks(*args, **kwargs):
+        raise AssertionError("a rank group was started")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(spawn, "run_ranks", no_ranks)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if how == "function":
+            dryrun_multichip(2)
+        else:
+            monkeypatch.setattr(sys, "argv", ["multichip", "2"])
+            monkeypatch.delitem(sys.modules, "foodrec_tpu_torch.multichip")
+            runpy.run_module("foodrec_tpu_torch.multichip",
+                             run_name="__main__")

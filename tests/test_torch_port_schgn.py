@@ -414,6 +414,30 @@ def test_score_from_cache_matches_jax(pair, faithful):
     assert moved > 1e-3 if faithful else moved < TOL
 
 
+def test_full_sort_predict_matches_jax(pair):
+    """A block of 7 users (not a multiple of 4, so the faithful interleave
+    mixes the scores across users) against every item from a fresh _gcn():
+    the JAX package's full_sort_predict within 1e-5, score_items over the
+    same block and all items bitwise; one user alone as the JAX package
+    scores it, which differs from that user's row of the block."""
+    _, jmodel, jparams, model = _variant_pair(pair, {})
+    users = np.arange(2, 9)
+    predict = jax.jit(jmodel.full_sort_predict)
+    got = model.full_sort_predict(torch.from_numpy(users))
+    assert got.shape == (7, model.n_items) and not got.requires_grad
+    _assert_rel(got.numpy(), np.asarray(predict(jparams, users)), TOL,
+                "full_sort_predict")
+    block = model.score_items(model.eval_cache(), torch.from_numpy(users),
+                              torch.arange(model.n_items))
+    assert torch.equal(got, block)
+    one = model.full_sort_predict(torch.tensor(users[1]))
+    assert one.shape == (model.n_items,)
+    _assert_rel(one.numpy(), np.asarray(predict(jparams, users[1])), TOL,
+                "full_sort_predict of one user")
+    moved = np.abs(one.numpy() - got[1].numpy()).max()
+    assert moved > 1e-3 * np.abs(got.numpy()).max()
+
+
 def test_evaluate_matches_jax_with_a_partial_last_block(pair):
     """Trainer.evaluate on valid and test: the toy's 24 users make one
     block of 32 (eval_batch_cap) padded with user 0, as the JAX package
@@ -726,6 +750,14 @@ def test_calculate_loss_float64_certificate(x64_report, vid):
         x64_report[-3000:]
 
 
+def test_full_sort_predict_float64_certificate(x64_report):
+    """full_sort_predict in torch.float64 for a block of 7 users in faithful
+    mode against the JAX package's under JAX_ENABLE_X64: scores within
+    1e-9 relative, equal top-50 ids."""
+    assert "full_sort_predict pass_1e-9=True" in x64_report, \
+        x64_report[-3000:]
+
+
 _JAX_SIDES = {}  # the subprocess builds the JAX side once
 
 
@@ -766,6 +798,29 @@ def _certificate(root, vid):
     print(f"certificate {vid} pass_1e-9={ok}", flush=True)
 
 
+def _full_sort_certificate(root, k=50):
+    synth = (root, {"neg_num": 20})
+    _, jmodels, jparams = _JAX_SIDES[root]
+    jmodel = jmodels[True]
+    params64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), jparams)
+    model = _port_model(synth, "SCHGN", OVERRIDES, jparams,
+                        dtype=torch.float64)[2]
+    users = np.arange(2, 9)
+    with jmodel.bind(_buffers64(jmodel)):
+        want = np.asarray(jmodel.full_sort_predict(params64, users))
+    got = model.full_sort_predict(torch.from_numpy(users)).numpy()
+    assert got.dtype == want.dtype == np.float64
+    err = _rel_err(got, want)
+
+    def top(scores):
+        return np.argsort(-scores, axis=1, kind="stable")[:, :k]
+
+    same = bool((top(got) == top(want)).all())
+    print(f"full_sort_predict worst={err:.3e} top{k}_equal={same}")
+    print(f"full_sort_predict pass_1e-9={err <= 1e-9 and same}", flush=True)
+
+
 if __name__ == "__main__":
     for v in LOSS_VARIANTS:
         _certificate(sys.argv[1], v[0])
+    _full_sort_certificate(sys.argv[1])
