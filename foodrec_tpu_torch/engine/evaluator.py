@@ -24,6 +24,8 @@ gain sums run left to right, as XLA reduces these short rows.
 import numpy as np
 import torch
 
+from foodrec_tpu_torch.utils.trace import span
+
 NEG_INF = -1e30
 _LOG2_E = torch.tensor(1.0 / np.log(2.0), dtype=torch.float32)
 
@@ -112,8 +114,9 @@ def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
         a = torch.as_tensor(a).to(device=device, dtype=torch.int64)
         return torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
 
-    users, cand = put(eval_set.users), put(eval_set.cand)
-    n_pos, n_cand = put(eval_set.n_pos), put(eval_set.n_cand)
+    with span("eval_upload"):
+        users, cand = put(eval_set.users), put(eval_set.cand)
+        n_pos, n_cand = put(eval_set.n_pos), put(eval_set.n_cand)
 
     keys = ("auc", "recall@10", "recall@20", "ndcg@10", "ndcg@20")
     per_user = {k: [] for k in keys}
@@ -121,7 +124,9 @@ def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
     for s in range(0, len(users), batch_size):
         e = s + batch_size
         scores = score_fn(users[s:e], cand[s:e])
-        m = by_user_metrics(scores, n_pos[s:e], n_cand[s:e], neg_num=neg_num)
+        with span("metrics"):
+            m = by_user_metrics(scores, n_pos[s:e], n_cand[s:e],
+                                neg_num=neg_num)
         for k in keys:
             per_user[k].append(m[k])
         if return_per_user:

@@ -32,6 +32,7 @@ from foodrec_tpu_torch.engine.evaluator import descending_order
 from foodrec_tpu_torch.parallel.collectives import all_gather
 from foodrec_tpu_torch.engine.matrics import metrics_dict
 from foodrec_tpu_torch.utils.misc import get_local_time
+from foodrec_tpu_torch.utils.trace import span
 
 topk_metrics = {m.lower(): m for m in
                 ["Recall", "Recall2", "Precision", "NDCG", "MAP"]}
@@ -56,11 +57,12 @@ def _block_topk(score_fn, blk, k, chunks):
     best_i = torch.zeros((b, k), dtype=torch.int64, device=blk.device)
     for items, valid in chunks:
         scores = torch.where(valid, score_fn(blk, items), -torch.inf)
-        merged_s = torch.cat([best_s, scores], dim=1)
-        merged_i = torch.cat([best_i, items.expand(b, -1)], dim=1)
-        sel = descending_order(merged_s)[:, :k]
-        best_s = merged_s.gather(1, sel)
-        best_i = merged_i.gather(1, sel)
+        with span("topk_merge"):
+            merged_s = torch.cat([best_s, scores], dim=1)
+            merged_i = torch.cat([best_i, items.expand(b, -1)], dim=1)
+            sel = descending_order(merged_s)[:, :k]
+            best_s = merged_s.gather(1, sel)
+            best_i = merged_i.gather(1, sel)
     return best_s, best_i
 
 
@@ -78,10 +80,11 @@ def full_sort_topk(score_fn, users, n_items, k, user_batch=64,
     score_fn(users int64 [B], items int64 [C]) -> float32 [B, C] scores of
     each user in the block against one shared list of item ids.
     """
-    out = [_block_topk(score_fn, blk, k,
-                       item_chunks(n_items, item_chunk, device))[1]
-           for blk in _user_blocks(users, user_batch, device)]
-    return torch.cat(out)[:len(users)].cpu()
+    with span("topk_request"):
+        out = [_block_topk(score_fn, blk, k,
+                           item_chunks(n_items, item_chunk, device))[1]
+               for blk in _user_blocks(users, user_batch, device)]
+        return torch.cat(out)[:len(users)].cpu()
 
 
 def distributed_full_sort_topk(mesh, score_fn, users, n_items, k,
@@ -100,19 +103,21 @@ def distributed_full_sort_topk(mesh, score_fn, users, n_items, k,
     shard = -(-n_items // n_sh)
     local_k = min(k, shard)
     out = []
-    for blk in _user_blocks(users, user_batch, device):
-        best_s, best_i = _block_topk(
-            score_fn, blk, local_k,
-            item_chunks(n_items, min(item_chunk, shard), device,
-                        first=i * shard, stop=(i + 1) * shard))
-        b = blk.shape[0]
-        all_s = all_gather(best_s, group).reshape(n_sh, b, local_k)
-        all_i = all_gather(best_i, group).reshape(n_sh, b, local_k)
-        all_s = all_s.transpose(0, 1).reshape(b, n_sh * local_k)
-        all_i = all_i.transpose(0, 1).reshape(b, n_sh * local_k)
-        sel = descending_order(all_s)[:, :k]
-        out.append(all_i.gather(1, sel))
-    return torch.cat(out)[:len(users)].cpu()
+    with span("topk_request"):
+        for blk in _user_blocks(users, user_batch, device):
+            best_s, best_i = _block_topk(
+                score_fn, blk, local_k,
+                item_chunks(n_items, min(item_chunk, shard), device,
+                            first=i * shard, stop=(i + 1) * shard))
+            b = blk.shape[0]
+            all_s = all_gather(best_s, group).reshape(n_sh, b, local_k)
+            all_i = all_gather(best_i, group).reshape(n_sh, b, local_k)
+            with span("topk_merge"):
+                all_s = all_s.transpose(0, 1).reshape(b, n_sh * local_k)
+                all_i = all_i.transpose(0, 1).reshape(b, n_sh * local_k)
+                sel = descending_order(all_s)[:, :k]
+                out.append(all_i.gather(1, sel))
+        return torch.cat(out)[:len(users)].cpu()
 
 
 class TopKEvaluator:

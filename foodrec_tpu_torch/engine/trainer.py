@@ -48,7 +48,10 @@ Semantics kept from the JAX package:
     (trainer.py:588-617); `save_state_every` / `resume_from` for a run that
     stops and goes on (trainer.py:513-530, 574-586)
   * `profile_trace_dir`: epoch 1 (the second) under torch.profiler, its
-    trace written there (trainer.py:534-547)
+    trace written there (trainer.py:534-547). The trace holds the port's
+    spans (utils/trace.py): `foodrec::train_step` for each batch, and
+    inside it `sampler`, `forward` (with each `spmm_forward`), `backward`
+    and `optimizer`; untraced epochs pay one flag check a span
 
 Random streams come from one `torch.Generator` on the model's device, seeded
 from config['seed']: the permutation, the negatives and the dropout masks.
@@ -101,6 +104,7 @@ from foodrec_tpu_torch.parallel import collectives as coll
 from foodrec_tpu_torch.parallel.mesh import batch_rows, make_mesh, shard_batch
 from foodrec_tpu_torch.utils.diagnostics import embedding_cos_similarity
 from foodrec_tpu_torch.utils.misc import dict2str, early_stopping
+from foodrec_tpu_torch.utils.trace import span
 
 
 def _decayed(p, g, weight_decay):
@@ -298,20 +302,24 @@ class Trainer:
         (shard_batch), and the gradient is the global batch's."""
         self.optimizer.zero_grad(set_to_none=True)
         if self.mesh is None:
-            parts = self.model.calculate_loss(
-                u, pos, neg, generator=self.generator, weight=weight)
-            sum(parts).backward()
+            with span("forward"):
+                parts = self.model.calculate_loss(
+                    u, pos, neg, generator=self.generator, weight=weight)
+            with span("backward"):
+                sum(parts).backward()
             return torch.stack(parts).detach()
         d = self.mesh.size("data")
         b = shard_batch(self.mesh, {"u": u, "pos": pos, "neg": neg,
                                     "weight": weight})
         with batch_rows(self.mesh, u.shape[0]):
-            parts = self.model.calculate_loss(
-                b["u"], b["pos"], b["neg"], generator=self.generator,
-                weight=b["weight"])
-            loss = sum(parts)
-            (loss / d if d > 1 else loss).backward()
-        self._reduce_grads()
+            with span("forward"):
+                parts = self.model.calculate_loss(
+                    b["u"], b["pos"], b["neg"], generator=self.generator,
+                    weight=b["weight"])
+            with span("backward"):
+                loss = sum(parts)
+                (loss / d if d > 1 else loss).backward()
+                self._reduce_grads()
         return torch.stack(parts).detach()
 
     def _reduce_grads(self):
@@ -345,19 +353,20 @@ class Trainer:
     def _update(self, scale=None):
         """One optimizer step on the gradients times `scale`, clipped, at
         the lr of the update count."""
-        if scale is not None:
-            for p in self.model.parameters():
-                if p.grad is not None:
-                    p.grad.mul_(scale)
-        if self.clip_grad_norm:
-            max_norm = self.clip_grad_norm.get("max_norm", 1.0)
-            if self.model.row_shards:
-                self._clip_sharded(max_norm)
-            else:
-                torch.nn.utils.clip_grad_norm_(self.model.parameters(),
-                                               max_norm)
-        self._set_lr()
-        self.optimizer.step()
+        with span("optimizer"):
+            if scale is not None:
+                for p in self.model.parameters():
+                    if p.grad is not None:
+                        p.grad.mul_(scale)
+            if self.clip_grad_norm:
+                max_norm = self.clip_grad_norm.get("max_norm", 1.0)
+                if self.model.row_shards:
+                    self._clip_sharded(max_norm)
+                else:
+                    torch.nn.utils.clip_grad_norm_(self.model.parameters(),
+                                                   max_norm)
+            self._set_lr()
+            self.optimizer.step()
         self.n_updates += 1
 
     @torch.no_grad()
@@ -430,22 +439,31 @@ class Trainer:
         negatives (and health negatives) drawn on the device as each is
         needed. With the padded tail every batch has the full size and the
         weight (position < n_train) (trainer.py:264-281)."""
-        bs = self.train_batch_size
         for b in range(first, last):
-            idx = perm[b * bs:(b + 1) * bs]  # the tail at its exact size
-            u = self._train_u[idx]
-            pos = self._train_i[idx]
-            neg = sample_negatives(u, self._excl, self.num_items,
-                                   self.generator, n_tries=self.n_tries)
-            extra = {}
-            if self.pad_tail:
-                extra["weight"] = (b * bs + torch.arange(
-                    bs, device=u.device) < self.n_train).float()
-            if self.hns:
-                extra["health_neg"] = sample_health_stratified_negatives(
-                    u, pos, self._excl, *self._health, self.generator,
-                    n_tries=self.n_tries)
-            yield (u, pos, neg, extra) if extra else (u, pos, neg)
+            # the step's span stays open while the caller runs the step on
+            # this batch, and closes when it asks for the next one
+            with span("train_step"):
+                with span("sampler"):
+                    batch = self._draw(perm, b)
+                yield batch
+
+    def _draw(self, perm, b):
+        """Batch `b` of the epoch's permutation, its negatives drawn."""
+        bs = self.train_batch_size
+        idx = perm[b * bs:(b + 1) * bs]  # the tail at its exact size
+        u = self._train_u[idx]
+        pos = self._train_i[idx]
+        neg = sample_negatives(u, self._excl, self.num_items,
+                               self.generator, n_tries=self.n_tries)
+        extra = {}
+        if self.pad_tail:
+            extra["weight"] = (b * bs + torch.arange(
+                bs, device=u.device) < self.n_train).float()
+        if self.hns:
+            extra["health_neg"] = sample_health_stratified_negatives(
+                u, pos, self._excl, *self._health, self.generator,
+                n_tries=self.n_tries)
+        return (u, pos, neg, extra) if extra else (u, pos, neg)
 
     def train_epoch(self):
         """One pass over the train pairs in a fresh device permutation;
@@ -657,16 +675,17 @@ class Trainer:
         """Dispatch between the reference's three eval paths
         (trainer.py:428-437): eval_by_user (default) > full_sort > sampled.
         Under a mesh every rank returns rank 0's (score, metrics)."""
-        if self.config["eval_by_user"]:
-            out = self._valid_by_user(eval_set)
-        elif self.config["full_sort"]:
-            out = self._valid_full_sort(is_test)
-        else:
-            out = self._valid_sample(is_test)
-        if self.mesh is not None and self.mesh.world_size > 1:
-            box = [out]
-            dist.broadcast_object_list(box, src=0)
-            out = box[0]
+        with span("eval_pass"):
+            if self.config["eval_by_user"]:
+                out = self._valid_by_user(eval_set)
+            elif self.config["full_sort"]:
+                out = self._valid_full_sort(is_test)
+            else:
+                out = self._valid_sample(is_test)
+            if self.mesh is not None and self.mesh.world_size > 1:
+                box = [out]
+                dist.broadcast_object_list(box, src=0)
+                out = box[0]
         return out
 
     def _eval_batch(self):
@@ -678,8 +697,9 @@ class Trainer:
     def _score_fn(self):
         """score_from_cache bound to a fresh eval_cache (the graph
         propagation, once per evaluation)."""
-        return functools.partial(self.model.score_from_cache,
-                                 self.model.eval_cache())
+        with span("eval_cache"):
+            cache = self.model.eval_cache()
+        return functools.partial(self.model.score_from_cache, cache)
 
     def _valid_by_user(self, eval_set):
         return evaluate_by_user(self._score_fn(), eval_set,
@@ -706,7 +726,8 @@ class Trainer:
         evaluator = TopKEvaluator(self.config)
         evaluator.save_recom_result = (bool(evaluator.save_recom_result)
                                        and self.writer)
-        cache = model.eval_cache()
+        with span("eval_cache"):
+            cache = model.eval_cache()
         # item-sharded over a `model` axis when the model scores by the
         # base dot product (trainer.py:663-671); SCHGN's scorer sweeps
         # replicated

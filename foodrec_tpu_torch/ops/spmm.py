@@ -36,6 +36,7 @@ from torch import nn
 from foodrec_tpu_torch.ops import _kernels
 from foodrec_tpu_torch.ops.graph import transpose_adjacency
 from foodrec_tpu_torch.utils.device import resolve_device
+from foodrec_tpu_torch.utils.trace import span
 
 # The CUDA kernel's work items (plan_csr), chosen at the main path's shapes
 # on the H100 among the geometries that chip_smoke.py times (PERF.md).
@@ -291,16 +292,18 @@ class Propagator(nn.Module):
                 self.plan.with_table(self.plan_table))
 
     def forward(self, x):
-        if self.impl == "kernel":
-            return SpmmCSR.apply(x, self.csr(), self.csr(transpose=True),
-                                 self.bf16)
-        dtype = torch.bfloat16 if self.bf16 else x.dtype
-        if self.impl == "ell":
-            y = spmm_ell(self.ell_cols, self.ell_vals.to(dtype), x.to(dtype))
-        else:
-            y = spmm_coo(self.rows, self.cols, self.vals.to(dtype),
-                         x.to(dtype), self.n_nodes)
-        return y.to(x.dtype)
+        with span("spmm_forward"):
+            if self.impl == "kernel":
+                return SpmmCSR.apply(x, self.csr(), self.csr(transpose=True),
+                                     self.bf16)
+            dtype = torch.bfloat16 if self.bf16 else x.dtype
+            if self.impl == "ell":
+                y = spmm_ell(self.ell_cols, self.ell_vals.to(dtype),
+                             x.to(dtype))
+            else:
+                y = spmm_coo(self.rows, self.cols, self.vals.to(dtype),
+                             x.to(dtype), self.n_nodes)
+            return y.to(x.dtype)
 
 
 def propagate_mean(propagator, x0, n_layers):

@@ -1,0 +1,11 @@
+"""sampler_device_ms.train: device milliseconds a step of the operations
+launched inside the program's `foodrec::sampler` spans (the batch's slice
+and gathers and its negatives' draws), in the traced training window; None
+where the program opens no such span."""
+
+from portbench import spans
+
+
+def read(run):
+    s = spans.device_seconds_inside(run.trace, "foodrec::sampler")
+    return spans.ms_per(s, run.traced["steps"])

@@ -457,8 +457,8 @@ def test_graph_config_keys_load_as_jax(rr_root, key, attrs):
 
 def test_profile_trace_dir_writes_the_trace(synth_root, tmp_path):
     """`profile_trace_dir`: fit runs epoch 1 (the second) under
-    torch.profiler and writes its chrome trace there; epoch 0 and the
-    other epochs run without it."""
+    torch.profiler and writes its chrome trace there, with the port's
+    spans; epoch 0 and the other epochs run without it."""
     import json
 
     from foodrec_tpu_torch.engine.trainer import Trainer
@@ -480,6 +480,9 @@ def test_profile_trace_dir_writes_the_trace(synth_root, tmp_path):
         events = json.load(f)["traceEvents"]
     assert any("calculate_loss" in e.get("name", "") or "aten::" in
                e.get("name", "") for e in events)
+    # the port's spans: one train_step range a batch of the epoch
+    steps = [e for e in events if e.get("name") == "foodrec::train_step"]
+    assert len(steps) == trainer.n_batches
 
 
 def test_spmm_impl_pallas_is_the_kernel(synth_root, cikm):
