@@ -22,7 +22,9 @@ clusters), with random weights from seed 999:
      96}), on two power-law graphs (Zipf item popularity at Foodcom's and
      Allrecipes' user-item sizes) and on a CLUSSL item-cluster graph at the
      upstream degree (6 clusters an item, ~90 items a cluster row), forward
-     and backward, run to run bitwise
+     and backward, run to run bitwise; the by-user metrics kernel against
+     its plain version, bit for bit, at the evaluation's block (256 users
+     x 640 slots), on the last padded block and on edge cases, then timed
   4. serving: dataset -> Config/FoodData/DeviceData -> CIKM_Model on cuda;
      kernel against plain on both real adjacencies; eval_cache through the
      kernel and through `segment`; Trainer.evaluate on valid and test;
@@ -449,6 +451,135 @@ def phase_power_law(torch, kernels, spmm):
     return graphs
 
 
+METRIC_BLOCK = (256, 640)  # the main path's by-user block: users x slots
+METRIC_USERS = 7596        # Foodcom's test users: the last block is padded
+METRIC_NEG = 500           # sampled negatives a user
+BY_USER_CASES = ("pos_neg_ties", "signed_zeros", "nan_inf", "few_candidates",
+                 "no_positives", "many_positives", "odd_width")
+
+
+def by_user_case(name, seed=SEED):
+    """One edge case of the by-user metrics, as numpy: (scores float32
+    [B, C], n_pos int64 [B], n_cand int64 [B], neg_num). The card holds the
+    kernel to the plain path on each, the CPU tests the plain path to the
+    JAX package."""
+    rng = np.random.default_rng([seed, BY_USER_CASES.index(name)])
+    b, neg_num = 12, 40
+    c = {"odd_width": 37, "many_positives": 96}.get(name, 64)
+    n_pos = rng.integers(1, 9, b)
+    if name == "no_positives":
+        n_pos[:] = 0
+    elif name == "many_positives":
+        n_pos = rng.integers(21, 48, b)
+    n_cand = np.minimum(n_pos + rng.integers(12, c, b), c)
+    if name == "few_candidates":
+        n_cand = np.minimum(n_pos + rng.integers(0, 12, b), 19)
+    scores = rng.standard_normal((b, c)).astype(np.float32)
+    if name == "pos_neg_ties":
+        scores = np.round(scores * 2) / 2  # a coarse grid: many ties
+        scores[0] = 0.25                   # every score tied: positives win
+    elif name == "signed_zeros":
+        scores[:, :] = np.where(rng.random((b, c)) < 0.5, scores, 0.0)
+        neg_zero = np.copysign(np.float32(0), -1)
+        for row in range(b):  # -0.0 positives over +0.0 negatives, and back
+            pos_zero = row % 2 == 0
+            scores[row, :n_pos[row]] = neg_zero if pos_zero else 0.0
+            rest = scores[row, n_pos[row]:] == 0
+            scores[row, n_pos[row]:][rest] = 0.0 if pos_zero else neg_zero
+    elif name == "nan_inf":
+        special = np.float32([np.nan, np.copysign(np.nan, -1), np.inf,
+                              -np.inf])
+        hit = rng.random((b, c)) < 0.3
+        scores[hit] = rng.choice(special, int(hit.sum()))
+    elif name == "no_positives":
+        n_cand[: b // 3] = 0   # the pad rows of a last block
+        scores[: b // 3] = scores[0, 0]
+    return scores, n_pos.astype(np.int64), n_cand.astype(np.int64), neg_num
+
+
+def metric_block(rng, n_real=None):
+    """A main-path by-user block: 256 users x 640 slots, as many positives
+    a user as a Foodcom test user holds (8-16) and about 500 negatives;
+    with `n_real`, the rows from n_real on are pad rows (n_pos = n_cand =
+    0) that score user 0's first slot."""
+    b, c = METRIC_BLOCK
+    n_pos = rng.integers(*FOODCOM_SCALE["test_per_user"], b)
+    n_cand = n_pos + METRIC_NEG - rng.integers(0, 4, b)
+    scores = rng.standard_normal((b, c)).astype(np.float32)
+    if n_real is not None:
+        n_pos[n_real:] = n_cand[n_real:] = 0
+        scores[n_real:] = scores[0, 0]
+    return scores, n_pos, n_cand, METRIC_NEG
+
+
+def phase_by_user_metrics(torch, kernels):
+    """The by-user metrics kernel (`evaluator.by_user_metrics` on the card)
+    against the plain path on the card, bit for bit, each twice: at the
+    main path's block, on the last padded block of the Foodcom test users
+    and on the edge cases; then its time at the main path's block beside
+    its byte bound (the block's scores) and the plain path's."""
+    from foodrec_tpu_torch.engine import evaluator
+
+    rng = np.random.default_rng(SEED)
+    cases = {"main 256x640": metric_block(rng),
+             "last padded block": metric_block(
+                 rng, METRIC_USERS % METRIC_BLOCK[0])}
+    cases.update((name, by_user_case(name)) for name in BY_USER_CASES)
+    before = kernels.launches["by_user_metrics"]
+    on_card = {}
+    for name, (s, p, n, neg) in cases.items():
+        s, p, n = on_card[name] = tuple(
+            torch.from_numpy(a).cuda() for a in (s, p, n))
+        runs = [evaluator.by_user_metrics(s, p, n, neg) for _ in "12"]
+        want = evaluator.by_user_metrics_plain(s, p, n, neg)
+        torch.cuda.synchronize()
+        for k, w in want.items():
+            w = w.view(torch.int32)
+            for got in runs:
+                g = got[k].contiguous().view(torch.int32)
+                if not torch.equal(g, w):
+                    row = int((g != w).nonzero()[0])
+                    raise AssertionError(
+                        f"by_user_metrics {name} {k}: row {row} kernel "
+                        f"{float(got[k][row])!r} plain "
+                        f"{float(want[k][row])!r}")
+        log(f"[3 metrics] {name}: B={s.shape[0]} C={s.shape[1]} n_pos "
+            f"{int(p.min())}-{int(p.max())} n_cand {int(n.min())}-"
+            f"{int(n.max())}: auc, recall@10/20, ndcg@10/20 bitwise equal "
+            f"to plain, bitwise repeat")
+    launches = kernels.launches["by_user_metrics"] - before
+    if launches != 2 * len(cases):
+        raise AssertionError(f"by_user_metrics: {launches} launches for "
+                             f"{2 * len(cases)} calls")
+    s, p, n = on_card["main 256x640"]
+
+    def kernel():
+        return evaluator.by_user_metrics(s, p, n, METRIC_NEG)
+
+    def plain():
+        return evaluator.by_user_metrics_plain(s, p, n, METRIC_NEG)
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    ms = cuda_time_ms(kernel, flush)
+    warm_ms, host_ms = warm_time_ms(kernel)
+    plain_ms = cuda_time_ms(plain, flush, reps=20)
+    plain_warm_ms, plain_host_ms = warm_time_ms(plain, reps=20)
+    bound_ms = s.numel() * s.element_size() / HBM_BYTES_PER_S * 1e3
+    launches = kernels.launches["by_user_metrics"] - before
+    log(f"[3 metrics] times at {METRIC_BLOCK[0]}x{METRIC_BLOCK[1]}: kernel "
+        f"{ms * 1e3:.2f} us clean flush, {warm_ms * 1e3:.2f} us warm, host "
+        f"{host_ms * 1e3:.2f} us a call; plain {plain_ms * 1e3:.1f} us "
+        f"clean flush, {plain_warm_ms * 1e3:.1f} us warm, host "
+        f"{plain_host_ms * 1e3:.1f} us a call; bound (the block's "
+        f"{s.numel() * 4 / 1e3:.0f} KB) {bound_ms * 1e3:.3f} us; "
+        f"by_user_metrics launches {launches}")
+    return dict(ms=ms, warm_ms=warm_ms, host_ms=host_ms, plain_ms=plain_ms,
+                plain_warm_ms=plain_warm_ms, plain_host_ms=plain_host_ms,
+                bound_ms=bound_ms, bound_by="bytes",
+                check_and_timing_launches=launches, cases=sorted(cases),
+                block=list(METRIC_BLOCK))
+
+
 def propagators(model):
     """{attribute name: Propagator} of a model."""
     from foodrec_tpu_torch.ops.spmm import Propagator
@@ -576,6 +707,17 @@ def phase_serving(torch, kernels, spmm):
         top = full_sort_topk(
             lambda u, i: model.score_items(cache, u, i), users,
             dd.n_items, TOPK_K, device=model.device)
+    # one by_user_metrics launch a block of users
+    block = trainer._eval_batch()
+    metrics_launches = {
+        f"serve evaluate {split}": -(-es.n_users // block)
+        for split, es in (("valid", dd.eval_valid), ("test", dd.eval_test))}
+    got = kernels.launches["by_user_metrics"]
+    log(f"[4 serve] main path: {got} by_user_metrics launches over "
+        f"evaluate(valid) and evaluate(test), blocks of {block} users")
+    if got != sum(metrics_launches.values()):
+        raise AssertionError(f"expected {metrics_launches} by_user_metrics "
+                             f"launches, got {got}")
     launches = kernels.launches["spmm_csr"]
     log(f"[4 serve] main path: {launches} spmm_csr launches over {n_caches} "
         f"eval_cache calls")
@@ -607,7 +749,8 @@ def phase_serving(torch, kernels, spmm):
                                                       is_test=True),
                       "4 serve", "evaluate(test)")
     return dict(graphs=graphs, launches=launches, eval_test_s=eval_test_s,
-                cfg=cfg, data=data, model=model)
+                metrics_launches=metrics_launches, cfg=cfg, data=data,
+                model=model)
 
 
 def profile_breakdown(torch, fn, tag, what, top=8):
@@ -918,7 +1061,7 @@ def phase_train(torch, kernels, spmm, served):
     parts = trainer.train_epoch()
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = spmm_launches(kernels.launches)
     model.calculate_loss = calculate_loss
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n_steps = len(step_parts)
@@ -1019,6 +1162,11 @@ def check_unit_metrics(metrics, what):
 def reset_launches(kernels):
     for k in kernels.launches:
         kernels.launches[k] = 0
+
+
+def spmm_launches(launches):
+    """The SpMM's counts of a launches dict: forward and gradient."""
+    return {k: launches[k] for k in ("spmm_csr", "spmm_csr_bwd")}
 
 
 def zoo_hops(model):
@@ -1202,7 +1350,7 @@ def schgn_full_sort_predict(torch, kernels, model, tag):
     scores = model.full_sort_predict(users)
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = spmm_launches(kernels.launches)
     want = {"spmm_csr": model_hops(model), "spmm_csr_bwd": 0}
     if launches != want:
         raise AssertionError(f"full_sort_predict: expected {want} launches, "
@@ -1290,7 +1438,7 @@ def phase_zoo_model(torch, kernels, spmm, name):
     parts = trainer.train_epoch()
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    train_launches = dict(kernels.launches)
+    train_launches = spmm_launches(kernels.launches)
     del model.calculate_loss
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n_steps = len(step_parts)
@@ -1330,7 +1478,7 @@ def phase_zoo_model(torch, kernels, spmm, name):
             f"users={es.n_users} {eval_s[split]:.3f} s "
             f"{es.n_users / eval_s[split]:.0f} users/s")
     topk_s, topk_gb = zoo_topk(torch, model, tag)  # one eval_cache
-    serve_launches = dict(kernels.launches)
+    serve_launches = spmm_launches(kernels.launches)
     want = {"spmm_csr": 3 * hops, "spmm_csr_bwd": 0}
     log(f"[{tag}] serving: {serve_launches['spmm_csr']} spmm_csr launches "
         f"over 3 eval_cache calls")
@@ -1454,7 +1602,7 @@ def driver_cli(torch, kernels, dataset=DATASET, data_root=DATA_ROOT,
         qs.get_trainer = get_trainer
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = spmm_launches(kernels.launches)
 
     if len(trainers) != 1 or hyper_tuple != (SEED,):
         raise AssertionError(f"{len(trainers)} combinations, best {hyper_tuple}")
@@ -1552,7 +1700,7 @@ def driver_mg(torch, kernels, data):
     parts = trainer.train_epoch()
     torch.cuda.synchronize()
     mg_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = spmm_launches(kernels.launches)
     n_batches = trainer.n_batches
     passes = n_batches + -(-n_batches // MG_SETTINGS["beta"])
     hops = model.n_layers + model.ui_layers
@@ -1882,7 +2030,7 @@ def counted_epoch(torch, kernels, trainer, tag, what):
     trainer.train_epoch()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = spmm_launches(kernels.launches)
     del trainer.train_steps
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n = len(seen)
@@ -1995,7 +2143,7 @@ def options_learners(torch, kernels, data):
             reset_launches(kernels)
             pk = tk.train_steps([batch])
             torch.cuda.synchronize()
-            step = dict(kernels.launches)
+            step = spmm_launches(kernels.launches)
             if step != {"spmm_csr": hops, "spmm_csr_bwd": hops}:
                 raise AssertionError(f"{tag}: {learner} launches {step}")
             for k in launches:
@@ -2096,7 +2244,7 @@ def options_trace(torch, kernels, data):
     trainer.fit(data)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = spmm_launches(kernels.launches)
     path = os.path.join(TRACE_ROOT, "epoch_1.pt.trace.json")
     if not os.path.isfile(path):
         raise AssertionError(f"{tag}: no trace at {path}")
@@ -2227,7 +2375,7 @@ def mesh_steps(torch, kernels, name, mesh_shape, extra=None, start=False,
             whole = trainer.model.full_state_dict()  # a collective
         if shadow is not None:
             # the twin's launches compare, they are not the mesh's path
-            before = dict(kernels.launches)
+            before = spmm_launches(kernels.launches)
             shadow.model.load_state_dict(whole)
             shadow.generator.set_state(trainer.generator.get_state())
             shadow._backward(*b)
@@ -2263,7 +2411,7 @@ def mesh_steps(torch, kernels, name, mesh_shape, extra=None, start=False,
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     del shadow
-    launches = dict(kernels.launches)
+    launches = spmm_launches(kernels.launches)
     hops = model_hops(model)
     want = {"spmm_csr": hops * MESH_STEPS, "spmm_csr_bwd": hops * MESH_STEPS}
     if launches != want:
@@ -2371,13 +2519,13 @@ def mesh_rank_runner(rank, config_dir, workdir):
             train_epoch = trainer.train_epoch
 
             def counted_epoch():
-                before = dict(_kernels.launches)
+                before = spmm_launches(_kernels.launches)
                 t0 = time.perf_counter()
                 parts = train_epoch()
                 torch.cuda.synchronize()
                 epoch["s"] = time.perf_counter() - t0
                 epoch["launches"] = {k: v - before[k] for k, v in
-                                     _kernels.launches.items()}
+                                     spmm_launches(_kernels.launches).items()}
                 return parts
 
             trainer.train_epoch = counted_epoch
@@ -2399,7 +2547,7 @@ def mesh_rank_runner(rank, config_dir, workdir):
         config_mod._CONFIG_DIR = shipped
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = dict(_kernels.launches)
+    launches = spmm_launches(_kernels.launches)
     (trainer,) = trainers
     mesh = trainer.mesh
     mesh_info = dict(shape=mesh.shape, backend=mesh.backend,
@@ -2531,7 +2679,7 @@ def mesh_rank_full_sort(rank, mesh_shape):
     t0 = time.perf_counter()
     ids, (score, metrics) = full_sort_ids(torch, trainer)
     torch.cuda.synchronize()
-    out = dict(launches=dict(_kernels.launches),
+    out = dict(launches=spmm_launches(_kernels.launches),
                s=time.perf_counter() - t0)
     if rank == 0:
         out.update(ids=ids, score=score, metrics=metrics, gloo=gloo)
@@ -3136,7 +3284,7 @@ def pipeline_clussl(torch, kernels, spmm):
     parts = torch.stack([trainer.train_steps([b]) for b in batches])
     torch.cuda.synchronize()
     steps_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = spmm_launches(kernels.launches)
     parts = parts.cpu().numpy()
     want = {"spmm_csr": hops * PIPELINE_STEPS,
             "spmm_csr_bwd": hops * PIPELINE_STEPS}
@@ -3271,7 +3419,7 @@ def phase_entry(torch, kernels, card):
     reset_launches(kernels)
     loss_k, grads_k = step()
     torch.cuda.synchronize()
-    launches = dict(kernels.launches)
+    launches = spmm_launches(kernels.launches)
     if launches != {"spmm_csr": 3, "spmm_csr_bwd": 3}:
         raise AssertionError(f"entry step: expected 3 + 3 launches, got "
                              f"{launches}")
@@ -3351,6 +3499,7 @@ def main():
         return 0
     phase_random_graphs(torch, _kernels, spmm)
     power_law = phase_power_law(torch, _kernels, spmm)
+    metrics_kernel = phase_by_user_metrics(torch, _kernels)
     if args.kernels_only:
         return 0
     flagship = phase_entry(torch, _kernels, card)
@@ -3455,6 +3604,14 @@ def main():
             peak_memory_gib=trained["peak_gb"],
             calculate_loss_grad_max_abs_err=trained["model_grad_err"],
             driver_resume=driver["resume"]),
+        {"name": "by_user_metrics", "route": "cuda",
+         "source": "foodrec_tpu_torch/csrc/by_user_metrics.cu",
+         "replaces": "none (foodrec_tpu/engine/evaluator.py:30 "
+                     "by_user_metrics, jnp)",
+         "per": "one by-user block of 256 users x 640 slots",
+         "launches": sum(served["metrics_launches"].values()),
+         "launches_by_path": served["metrics_launches"],
+         **metrics_kernel},
     ]}
     log(card)  # again beside the results, for a reader of the output's end
     print(json.dumps(record), flush=True)

@@ -19,29 +19,50 @@ Semantics kept exactly:
 Per-user values equal the JAX package's bit for bit on the CPU: the rank
 gains repeat XLA's lowering of `jnp.log2` (log(x) * f32(1/ln 2)) and the
 gain sums run left to right, as XLA reduces these short rows.
+
+On the card a block's metrics are one launch of the hand-written kernel
+`csrc/by_user_metrics.cu` (`ops/_kernels.py` `by_user_metrics`), which
+gives the plain version's values bit for bit; CPU tensors take the plain
+version, `by_user_metrics_plain`.
 """
+
+import functools
 
 import numpy as np
 import torch
 
+from foodrec_tpu_torch.ops import _kernels
 from foodrec_tpu_torch.utils.trace import span
 
 NEG_INF = -1e30
+TOP_K = 20  # the ranks Recall and NDCG read (the kernel's kMaxK)
+METRICS = ("auc", "recall@10", "recall@20", "ndcg@10", "ndcg@20")
 _LOG2_E = torch.tensor(1.0 / np.log(2.0), dtype=torch.float32)
+
+
+def _order_key(bits):
+    """int32 bits of float32 values (a tensor or an int) to keys monotone
+    in the float total order."""
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+# the key of a masked slot's score, float32 NEG_INF
+_MASKED_KEY = _order_key(int(np.float32(NEG_INF).view(np.int32)))
 
 
 def descending_order(x):
     """Indices sorting each row of float32 `x` as `jax.lax.top_k` does:
     descending in the float total order, equal values by lower index."""
-    bits = x.contiguous().view(torch.int32)
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # monotone in the total order
+    key = _order_key(x.contiguous().view(torch.int32))
     return torch.sort(key, dim=1, descending=True, stable=True).indices
 
 
-def _rank_gains(max_k, device):
-    """1 / log2(rank + 2) in float32, computed on the CPU."""
-    r = torch.arange(max_k, dtype=torch.float32) + 2.0
-    return (1.0 / (torch.log(r) * _LOG2_E)).to(device)
+@functools.lru_cache(maxsize=None)
+def _rank_gains():
+    """1 / log2(rank + 2) for the top TOP_K ranks in float32, computed on
+    the CPU once (read only: every caller shares the tensor)."""
+    r = torch.arange(TOP_K, dtype=torch.float32) + 2.0
+    return 1.0 / (torch.log(r) * _LOG2_E)
 
 
 def _sum_left_to_right(x):
@@ -52,14 +73,32 @@ def _sum_left_to_right(x):
     return acc
 
 
-def by_user_metrics(scores, n_pos, n_cand, neg_num, max_k=20):
+def by_user_metrics(scores, n_pos, n_cand, neg_num):
     """Per-user metrics from padded candidate scores.
 
     scores: float32 [B, C]  (padded slots may hold junk; masked here)
     n_pos:  int [B]         positives occupy slots [0, n_pos)
     n_cand: int [B]         valid slots are [0, n_cand)
     Returns dict of float32 [B] tensors: auc, recall@10/20, ndcg@10/20.
+    On the card, one launch of the kernel (rows of 20 to
+    `_kernels.METRICS_MAX_WIDTH` slots; it raises on others); on the CPU,
+    the plain version.
     """
+    if scores.device.type != "cuda":
+        return by_user_metrics_plain(scores, n_pos, n_cand, neg_num)
+    out = _kernel_block(scores, n_pos, n_cand, neg_num)
+    return dict(zip(METRICS, out.unbind(1)))
+
+
+def _kernel_block(scores, n_pos, n_cand, neg_num):
+    """One launch of the kernel: float32 [B, 5], the columns METRICS."""
+    return _kernels.by_user_metrics(
+        scores.contiguous(), n_pos.long().contiguous(),
+        n_cand.long().contiguous(), _rank_gains(), neg_num, _MASKED_KEY)
+
+
+def by_user_metrics_plain(scores, n_pos, n_cand, neg_num):
+    """by_user_metrics in PyTorch ops, on any device."""
     b, c = scores.shape
     slot = torch.arange(c, device=scores.device)[None, :]
     valid = slot < n_cand[:, None]
@@ -75,9 +114,9 @@ def by_user_metrics(scores, n_pos, n_cand, neg_num, max_k=20):
 
     # ---- ranking metrics ----------------------------------------------------
     # positive slots lead, so a top slot below n_pos is a hit
-    hit = descending_order(masked)[:, :max_k] < n_pos[:, None]
-    ranks = torch.arange(max_k, device=scores.device)[None, :]
-    gains = _rank_gains(max_k, scores.device)
+    hit = descending_order(masked)[:, :TOP_K] < n_pos[:, None]
+    ranks = torch.arange(TOP_K, device=scores.device)[None, :]
+    gains = _rank_gains().to(scores.device)
 
     out = {"auc": auc}
     for k in (10, 20):
@@ -118,22 +157,26 @@ def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
         users, cand = put(eval_set.users), put(eval_set.cand)
         n_pos, n_cand = put(eval_set.n_pos), put(eval_set.n_cand)
 
-    keys = ("auc", "recall@10", "recall@20", "ndcg@10", "ndcg@20")
-    per_user = {k: [] for k in keys}
-    preds = []
+    blocks, preds = [], []
     for s in range(0, len(users), batch_size):
         e = s + batch_size
         scores = score_fn(users[s:e], cand[s:e])
         with span("metrics"):
-            m = by_user_metrics(scores, n_pos[s:e], n_cand[s:e],
-                                neg_num=neg_num)
-        for k in keys:
-            per_user[k].append(m[k])
+            if scores.device.type == "cuda":
+                m = _kernel_block(scores, n_pos[s:e], n_cand[s:e], neg_num)
+            else:
+                m = by_user_metrics_plain(scores, n_pos[s:e], n_cand[s:e],
+                                          neg_num)
+                m = torch.stack([m[k] for k in METRICS], 1)
+            blocks.append(m)
         if return_per_user:
             preds.append(scores)
 
-    per_user = {k: torch.cat(v)[:u].cpu().numpy()
-                for k, v in per_user.items()}
+    # one copy to the host a pass; each metric's column made contiguous, so
+    # that numpy's means add as they did over separate arrays
+    columns = torch.cat(blocks)[:u].cpu().numpy()
+    per_user = {k: np.ascontiguousarray(columns[:, i])
+                for i, k in enumerate(METRICS)}
     # numpy float32 means, as the JAX package takes them
     metrics = {
         "AUC": float(per_user["auc"].mean()),

@@ -32,6 +32,9 @@ KERNELS = {
     "spmm_csr": ("spmm_csr.cu", "spmm_csr_f32",
                  [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 6
                  + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "by_user_metrics": ("by_user_metrics.cu", "by_user_metrics_f32",
+                        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
+                        + [ctypes.c_int, ctypes.c_void_p]),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -110,9 +113,9 @@ def load_all():
         _entry(name)
 
 
-def _check(cond, msg):
+def _check(cond, msg, kernel="spmm_csr"):
     if not cond:
-        raise ValueError(f"spmm_csr: {msg}")
+        raise ValueError(f"{kernel}: {msg}")
 
 
 def spmm_csr(row_ptr, cols, vals, plan, x, count="spmm_csr",
@@ -177,3 +180,50 @@ def spmm_csr(row_ptr, cols, vals, plan, x, count="spmm_csr",
         raise RuntimeError(f"spmm_csr launch failed with CUDA error {err}")
     launches[count] += 1
     return y
+
+
+# the widest row by_user_metrics takes: a row stages 8 bytes a slot in
+# shared memory, within the 227 KB a block may use on Hopper
+METRICS_MAX_WIDTH = 28 * 1024
+
+
+def by_user_metrics(scores, n_pos, n_cand, gains, neg_num, masked_key):
+    """The by-user metrics of a block of users on the card, one launch:
+    scores float32 [B, C] contiguous with 20 <= C <= METRICS_MAX_WIDTH,
+    n_pos and n_cand int64 [B] contiguous on its device (positives occupy
+    slots [0, n_pos), valid slots are [0, n_cand)), `gains` the 20 float32
+    rank gains 1 / log2(r + 2) in a contiguous CPU tensor, `masked_key` the
+    order key of the score a slot at or past n_cand takes. Returns float32
+    [B, 5], the columns auc, recall@10, recall@20, ndcg@10, ndcg@20; adds
+    one to `launches["by_user_metrics"]`."""
+    def check(cond, msg):
+        _check(cond, msg, "by_user_metrics")
+
+    dev = scores.device
+    check(dev.type == "cuda", f"scores must be on a CUDA device, got {dev}")
+    check(scores.dtype == torch.float32 and scores.dim() == 2
+          and scores.is_contiguous(), "scores must be float32 2-D contiguous")
+    b, c = scores.shape
+    check(20 <= c <= METRICS_MAX_WIDTH,
+          f"a row holds 20 to {METRICS_MAX_WIDTH} slots, got {c}")
+    for t, name in ((n_pos, "n_pos"), (n_cand, "n_cand")):
+        check(isinstance(t, torch.Tensor) and t.device == dev
+              and t.dtype == torch.int64 and t.shape == (b,)
+              and t.is_contiguous(),
+              f"{name} must be int64 [{b}] contiguous on {dev}")
+    check(gains.device.type == "cpu" and gains.dtype == torch.float32
+          and gains.shape == (20,) and gains.is_contiguous(),
+          "gains must be float32 [20] contiguous on the CPU")
+    out = torch.empty((b, 5), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    fn = _entry("by_user_metrics")
+    with torch.cuda.device(dev):
+        err = fn(scores.data_ptr(), n_pos.data_ptr(), n_cand.data_ptr(),
+                 gains.data_ptr(), out.data_ptr(), b, c, int(neg_num),
+                 int(masked_key), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"by_user_metrics launch failed with CUDA error {err}")
+    launches["by_user_metrics"] += 1
+    return out

@@ -2,11 +2,18 @@
 (carried over by params_from_jax) gives the same embeddings, metrics and
 top-k as the JAX package on the same synthetic dataset."""
 
+import ctypes
+import os
+import re
+import types
+
 import jax
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import BY_USER_CASES, by_user_case
+from foodrec_tpu_torch.ops import _kernels
 from tests.conftest import make_config
 
 RTOL, ATOL = 1e-5, 1e-6   # float32 SpMM sums taken in other orders
@@ -170,6 +177,100 @@ def test_by_user_metrics_exactly_equal_to_jax(seed):
     if n_pos[tied]:
         assert got["recall@20"][tied] == min(20, n_pos[tied]) / n_pos[tied]
         assert got["auc"][tied] == 0
+
+
+# what each edge case has to hold for the test to mean anything
+_CASE_PREMISE = {
+    "pos_neg_ties": lambda s, p, n: any(
+        np.isin(s[r, :p[r]], s[r, p[r]:n[r]]).any() for r in range(len(s))),
+    "signed_zeros": lambda s, p, n: (np.signbit(s) & (s == 0)).any()
+    and (~np.signbit(s) & (s == 0)).any(),
+    "nan_inf": lambda s, p, n: np.isnan(s).any() and np.isposinf(s).any()
+    and np.isneginf(s).any() and np.signbit(s[np.isnan(s)]).any(),
+    "few_candidates": lambda s, p, n: n.max() < 20,
+    "no_positives": lambda s, p, n: (p == 0).all() and (n == 0).any(),
+    "many_positives": lambda s, p, n: p.min() > 20,
+    "odd_width": lambda s, p, n: s.shape[1] % 4 != 0,
+}
+
+
+@pytest.mark.parametrize("case", BY_USER_CASES)
+def test_by_user_metrics_edge_cases_equal_jax(case):
+    """The plain path equals the JAX package bit for bit on the cases that
+    chip_smoke.py holds the card's kernel to (the kernel against the plain
+    path): positives tied with negatives, -0.0 against +0.0, NaN of both
+    signs and +-inf, n_cand < 20, n_pos = 0 with pad rows, n_pos > 20, a
+    width that is not a multiple of 4."""
+    from foodrec_tpu.engine.evaluator import by_user_metrics as jmetrics
+    from foodrec_tpu_torch.engine.evaluator import by_user_metrics
+
+    scores, n_pos, n_cand, neg_num = by_user_case(case)
+    assert _CASE_PREMISE[case](scores, n_pos, n_cand)
+    want = jmetrics(scores, n_pos.astype(np.int32), n_cand.astype(np.int32),
+                    neg_num=neg_num)
+    got = by_user_metrics(torch.from_numpy(scores), torch.from_numpy(n_pos),
+                          torch.from_numpy(n_cand), neg_num=neg_num)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        g, w = got[k].numpy(), np.asarray(want[k])
+        assert g.dtype == w.dtype == np.float32, k
+        assert np.array_equal(g.view(np.int32), w.view(np.int32)), (k, g, w)
+
+
+def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
+    """On the CPU, by_user_metrics and evaluate_by_user run the plain path
+    and launch nothing; the kernel's launcher refuses CPU tensors."""
+    from foodrec_tpu_torch.engine import evaluator
+
+    scores, n_pos, n_cand, neg_num = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in by_user_case("pos_neg_ties"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        _kernels.by_user_metrics(scores, n_pos, n_cand,
+                                 evaluator._rank_gains(), neg_num,
+                                 evaluator._MASKED_KEY)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the kernel")
+
+    monkeypatch.setattr(_kernels, "by_user_metrics", refuse)
+    monkeypatch.setattr(_kernels, "_entry", refuse)
+    monkeypatch.setitem(_kernels.launches, "by_user_metrics", 0)
+    want = evaluator.by_user_metrics(scores, n_pos, n_cand, neg_num)
+    plain = evaluator.by_user_metrics_plain(scores, n_pos, n_cand, neg_num)
+    b, c = scores.shape
+    eval_set = types.SimpleNamespace(
+        n_users=b, users=np.arange(b), cand=np.arange(b * c).reshape(b, c),
+        n_pos=n_pos.numpy(), n_cand=n_cand.numpy())
+    _, metrics, per_user, preds = evaluator.evaluate_by_user(
+        lambda users, cand: scores[users], eval_set, neg_num, batch_size=5,
+        device="cpu", return_per_user=True)  # 12 users: the last block padded
+    assert _kernels.launches["by_user_metrics"] == 0
+    assert np.array_equal(preds, scores.numpy())
+    for k in want:
+        assert torch.equal(want[k], plain[k]), k
+        assert per_user[k].flags.c_contiguous, k
+        assert np.array_equal(per_user[k], want[k].numpy()), k
+    assert metrics["NDCG@20"] == float(want["ndcg@20"].numpy().mean())
+
+
+_C_TYPES = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+            "int": ctypes.c_int}
+
+
+@pytest.mark.parametrize("name", sorted(_kernels.KERNELS))
+def test_kernel_argtypes_match_the_c_entry_point(name):
+    """Each KERNELS entry's ctypes argtypes follow the parameters of the C
+    entry point its source declares, one for one (a pointer passed as an
+    int would be cut to 32 bits)."""
+    source, symbol, argtypes = _kernels.KERNELS[name]
+    with open(os.path.join(_kernels._CSRC, source)) as f:
+        text = f.read()
+    decl = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+    assert decl, f"{source} declares no extern \"C\" int {symbol}(...)"
+    params = [" ".join(p.split()[:-1]).replace("const ", "")
+              for p in decl.group(1).split(",")]
+    assert [_C_TYPES[p] for p in params] == argtypes, params
 
 
 def test_trainer_evaluate_matches_jax(served):
