@@ -740,9 +740,10 @@ class Trainer:
             functools.partial(model.score_items, cache), users, ds.num_items,
             max(evaluator.topk), user_batch=min(self.eval_batch_size, 64),
             device=model.device)
-        result = evaluator.evaluate(topk_index.numpy(),
-                                    (users, pos_items, pos_len),
-                                    is_test=is_test, idx=idx)
+        with span("topk_metrics"):
+            result = evaluator.evaluate(topk_index.numpy(),
+                                        (users, pos_items, pos_len),
+                                        is_test=is_test, idx=idx)
         valid_metric = (self.config["valid_metric"] or "NDCG@20").lower()
         score = result.get(valid_metric, result.get("ndcg@20", 0.0))
         return score, result

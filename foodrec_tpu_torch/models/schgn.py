@@ -59,6 +59,7 @@ from foodrec_tpu_torch.parallel.mesh import (
     gather_batch_rows,
     take_batch_rows,
 )
+from foodrec_tpu_torch.utils.trace import span
 
 
 @register("SCHGN")
@@ -199,37 +200,40 @@ class SCHGN(GeneralRecommender):
         """compute_score (schgn.py:234-268) for int64 `users` and `items`
         that broadcast against each other; `training` applies the score
         dropout, drawn from `generator`."""
-        u_gcn, i_gcn, g_gcn, h_gcn = tables
-        ingre = self.ingre_codes[items]
-        hl = self.cal_level[items]
-        u_emb = self.user_embed[users] + u_gcn[users]
-        i_emb = self.item_embed[items] + i_gcn[items]
-        ingre_emb = self._ingre_table()[ingre] + g_gcn[ingre]
-        hl_emb = self.health_embed[hl] + h_gcn[hl]
-        img_emb = self.img[items] @ self.img_trans["w"] + self.img_trans["b"]
+        with span("score"):
+            u_gcn, i_gcn, g_gcn, h_gcn = tables
+            ingre = self.ingre_codes[items]
+            hl = self.cal_level[items]
+            u_emb = self.user_embed[users] + u_gcn[users]
+            i_emb = self.item_embed[items] + i_gcn[items]
+            ingre_emb = self._ingre_table()[ingre] + g_gcn[ingre]
+            hl_emb = self.health_embed[hl] + h_gcn[hl]
+            img_emb = (self.img[items] @ self.img_trans["w"]
+                       + self.img_trans["b"])
 
-        ingre_att = self._attention_ingredient_level(
-            ingre_emb, u_emb, img_emb, self.ingre_num[items])
-        lead = ingre_att.shape[:-1]
-        comps = torch.stack([t.expand(ingre_att.shape) for t in
-                             (i_emb, ingre_att, img_emb, hl_emb)], dim=-2)
-        u_emb = u_emb.expand(ingre_att.shape)
-        item_att = self._attention_component_level(u_emb, comps)
-        ui = torch.cat([u_emb, item_att, u_emb * item_att], dim=-1)
-        hidden = ui @ self.W_concat["w"] + self.W_concat["b"]
-        if training:
-            hidden = dropout(hidden, 0.5, generator, rows=True)
-        out = F.relu(hidden) @ self.output_mlp["w"]
-        return out.reshape(lead)
+            ingre_att = self._attention_ingredient_level(
+                ingre_emb, u_emb, img_emb, self.ingre_num[items])
+            lead = ingre_att.shape[:-1]
+            comps = torch.stack([t.expand(ingre_att.shape) for t in
+                                 (i_emb, ingre_att, img_emb, hl_emb)], dim=-2)
+            u_emb = u_emb.expand(ingre_att.shape)
+            item_att = self._attention_component_level(u_emb, comps)
+            ui = torch.cat([u_emb, item_att, u_emb * item_att], dim=-1)
+            hidden = ui @ self.W_concat["w"] + self.W_concat["b"]
+            if training:
+                hidden = dropout(hidden, 0.5, generator, rows=True)
+            out = F.relu(hidden) @ self.output_mlp["w"]
+            return out.reshape(lead)
 
     # ------------------------------------------------------------------- SSL
     def _ssl_loss(self, g_gcn_table, items, generator):
         """Masked-ingredient prediction (schgn.py:208-232) on sequences
         masked on the device."""
-        seqs = ssl_mask_ingredients(self.ingre_codes[items],
-                                    self.ingre_num[items], self.n_ingredients,
-                                    generator, masked_p=self.masked_p)
-        return self._ssl_loss_from_seqs(g_gcn_table, *seqs, generator)
+        with span("ssl"):
+            seqs = ssl_mask_ingredients(
+                self.ingre_codes[items], self.ingre_num[items],
+                self.n_ingredients, generator, masked_p=self.masked_p)
+            return self._ssl_loss_from_seqs(g_gcn_table, *seqs, generator)
 
     def _ssl_loss_from_seqs(self, g_gcn_table, masked_seq, pos_seq, neg_seq,
                             generator):

@@ -205,8 +205,9 @@ class SpmmCSR(torch.autograd.Function):
     def backward(ctx, g):
         # g may arrive strided or as an expanded zero tensor (the slices of a
         # propagated table); the kernel takes a contiguous x
-        gx = spmm_csr(*ctx.a_t, g.contiguous(), count="spmm_csr_bwd",
-                      round_bf16=ctx.round_bf16)
+        with span("spmm_backward"):
+            gx = spmm_csr(*ctx.a_t, g.contiguous(), count="spmm_csr_bwd",
+                          round_bf16=ctx.round_bf16)
         return gx, None, None, None
 
 

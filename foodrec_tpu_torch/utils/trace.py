@@ -21,12 +21,19 @@ The spans, and where they sit:
     the mesh's gradient reduction; the scale, clip, lr and
     `optimizer.step()` (`_backward`, `_update`)
   * `spmm_forward`: one graph product (ops/spmm.py `Propagator.forward`)
+  * `spmm_backward`: the kernel's product with A^T in the backward of one
+    graph product, its fix-up launches included (ops/spmm.py
+    `SpmmCSR.backward`)
+  * `score`, `ssl`: SCHGN's scorer and its masked-ingredient loss
+    (models/schgn.py `SCHGN._score`, `SCHGN._ssl_loss`)
   * `eval_pass`, `eval_cache`: one evaluation; its graph propagation
     (`Trainer._valid`, `_score_fn`, `_valid_full_sort`)
   * `eval_upload`, `metrics`: a by-user pass's arrays copied to the device;
     a block's metrics (engine/evaluator.py `evaluate_by_user`)
   * `topk_request`, `topk_merge`: one full-sort top-k call; one chunk's
     merge (engine/topk_evaluator.py)
+  * `topk_metrics`: the host's metrics of a full-sort evaluation's top-k
+    lists (`TopKEvaluator.evaluate` in `Trainer._valid_full_sort`)
 
 No span name is a prefix of another: readers select ranges by prefix.
 Spans touch no tensor and no random stream.
@@ -40,7 +47,8 @@ from torch.autograd import profiler
 PREFIX = "foodrec::"
 SPANS = ("train_step", "sampler", "forward", "backward", "optimizer",
          "spmm_forward", "eval_pass", "eval_cache", "eval_upload", "metrics",
-         "topk_request", "topk_merge")
+         "topk_request", "topk_merge", "spmm_backward", "score", "ssl",
+         "topk_metrics")
 
 _OFF = contextlib.nullcontext()
 

@@ -1,0 +1,11 @@
+"""score_device_ms.train: device milliseconds a step of the operations
+launched inside the program's `foodrec::score` spans (SCHGN's scorer, the
+positives' and the negatives' calls), in the traced training window; None
+where the program opens no such span."""
+
+from portbench.spans import device_seconds_inside, ms_per
+
+
+def read(run):
+    s = device_seconds_inside(run.trace, "foodrec::score")
+    return ms_per(s, run.traced["steps"])

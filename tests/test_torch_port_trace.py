@@ -130,6 +130,41 @@ def test_full_sort_topk_records_one_merge_per_chunk(toy):
         r["topk_merge"])
 
 
+def test_each_graph_backward_records_spmm_backward(toy):
+    """One `spmm_backward` for each kernel product of the forward, inside
+    the step's `backward`."""
+    trainer = _trainer(toy)
+    perm = trainer._epoch_perm()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.train_steps(trainer._batches(perm, 0, 1))
+    r = _ranges(prof)
+    (backward,) = r["backward"]
+    assert len(r["spmm_backward"]) == len(r["spmm_forward"]) == 3
+    assert len(_inside(r["spmm_backward"], backward)) == 3
+
+
+def test_full_sort_evaluation_records_its_host_metrics(toy):
+    """The full-sort path: one `topk_metrics` inside the pass, after its
+    top-k request."""
+    trainer = _trainer(toy)
+    cfg = trainer.config
+    saved = {k: cfg[k] for k in ("full_sort", "eval_by_user",
+                                 "save_recommended_topk")}
+    cfg["full_sort"], cfg["eval_by_user"] = True, False
+    cfg["save_recommended_topk"] = False
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            trainer.evaluate(None, is_test=True)
+    finally:
+        for k, v in saved.items():
+            cfg[k] = v
+    r = _ranges(prof)
+    (eval_pass,) = r["eval_pass"]
+    (request,) = r["topk_request"]
+    (metrics,) = _inside(r["topk_metrics"], eval_pass)
+    assert request[1] <= metrics[0]
+
+
 def test_spans_change_no_number_or_random_stream(toy):
     """Loss parts, parameters and the generator's state after two steps
     and an evaluation are bitwise the same with the profiler on and off."""
