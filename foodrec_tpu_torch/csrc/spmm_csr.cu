@@ -66,11 +66,11 @@
 // stay f32, so on this card it saves no traffic, and the rounding costs a
 // few microseconds.
 //
-// Geometry (ITEM_EDGES, ITEM_ROWS, items per block, kUnroll) is the host
-// plan's (ops/spmm.py). The values chosen, and the alternatives measured
-// beside them (shorter and longer items, other block sizes, an item per
-// warp with the half-warps on alternate edges, a bulk prefetch of x into
-// the L2), are in PERF.md; chip_smoke.py times the plan geometries.
+// Geometry (ITEM_EDGES, ITEM_ROWS, items per block) is the host plan's
+// (ops/spmm.py); kUnroll is 8. The values chosen, and the alternatives
+// measured beside them (shorter and longer items, other block sizes, 4
+// gathers in flight, an item per warp with the half-warps on alternate
+// edges, a bulk prefetch of x into the L2), are in PERF.md.
 
 #include <cstdint>
 
@@ -300,8 +300,7 @@ cudaError_t launch(const int32_t* row_ptr, const int32_t* cols,
 // Launches on `stream` and returns a CUDA error code (0 on success). The
 // caller (ops/_kernels.py) has checked shapes, dtypes, contiguity, the plan
 // against the matrix, alignment (16 bytes for vec 4, 8 for vec 2), d % vec
-// == 0, nnz < 2^31, n_items > 0, threads a multiple of 32 up to 512, and
-// unroll 4 or 8.
+// == 0, nnz < 2^31, n_items > 0, and threads a multiple of 32 up to 512.
 extern "C" int spmm_csr_f32(const void* row_ptr, const void* cols,
                             const void* vals, const void* x,
                             const void* item_row, const void* item_edge,
@@ -309,8 +308,8 @@ extern "C" int spmm_csr_f32(const void* row_ptr, const void* cols,
                             const void* fix_ptr, void* y, void* partials,
                             long long n_items, long long n_fix, long long d,
                             long long threads, long long block_edges,
-                            long long block_rows, int vec, int unroll,
-                            int round_bf16, void* stream) {
+                            long long block_rows, int vec, int round_bf16,
+                            void* stream) {
   const auto args = [&](auto fn) {
     return fn(static_cast<const int32_t*>(row_ptr),
               static_cast<const int32_t*>(cols),
@@ -327,14 +326,10 @@ extern "C" int spmm_csr_f32(const void* row_ptr, const void* cols,
   };
   const bool bf16 = round_bf16 != 0;
   cudaError_t err;
-  if (vec == 4 && unroll == 8) {
+  if (vec == 4) {
     err = bf16 ? args(launch<4, 8, true>) : args(launch<4, 8, false>);
-  } else if (vec == 4) {
-    err = bf16 ? args(launch<4, 4, true>) : args(launch<4, 4, false>);
-  } else if (unroll == 8) {
-    err = bf16 ? args(launch<2, 8, true>) : args(launch<2, 8, false>);
   } else {
-    err = bf16 ? args(launch<2, 4, true>) : args(launch<2, 4, false>);
+    err = bf16 ? args(launch<2, 8, true>) : args(launch<2, 8, false>);
   }
   return static_cast<int>(err);
 }

@@ -31,7 +31,7 @@ BUILD_DIR = os.path.join(
 KERNELS = {
     "spmm_csr": ("spmm_csr.cu", "spmm_csr_f32",
                  [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 6
-                 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
     "by_user_metrics": ("by_user_metrics.cu", "by_user_metrics_f32",
                         [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
                         + [ctypes.c_int, ctypes.c_void_p]),
@@ -161,7 +161,6 @@ def spmm_csr(row_ptr, cols, vals, plan, x, count="spmm_csr",
     threads = 16 * plan.items_per_block  # a half-warp per item
     _check(threads in range(32, 513, 32),
            "items_per_block must be even, 2 to 32")
-    _check(plan.unroll in (4, 8), "unroll must be 4 or 8")
     y = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0 or d == 0:
         return y
@@ -177,7 +176,7 @@ def spmm_csr(row_ptr, cols, vals, plan, x, count="spmm_csr",
         err = fn(row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
                  x.data_ptr(), *ptr, y.data_ptr(), partials.data_ptr(),
                  n_items, n_fix, d, threads, plan.block_edges,
-                 plan.block_rows, vec, plan.unroll, int(round_bf16),
+                 plan.block_rows, vec, int(round_bf16),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"spmm_csr launch failed with CUDA error {err}")

@@ -17,8 +17,9 @@ Three implementations behind one `Propagator` module:
                   the kernel or raise.
 
 `ell` and `segment` are the kernel's plain versions, differentiated by plain
-torch autograd: the CPU tests use them and `chip_smoke.py` holds the kernel
-against them on the card, forward and backward.
+torch autograd: the CPU tests use them, and the `cuda` cases of
+tests/test_torch_port_spmm.py hold the kernel against them on the card,
+forward and backward.
 
 `compute_dtype="bfloat16"` follows the JAX package per impl
 (foodrec_tpu/ops/spmm.py:315-336): the kernel rounds x (g in the backward)
@@ -39,11 +40,10 @@ from foodrec_tpu_torch.utils.device import resolve_device
 from foodrec_tpu_torch.utils.trace import span
 
 # The CUDA kernel's work items (plan_csr), chosen at the main path's shapes
-# on the H100 among the geometries that chip_smoke.py times (PERF.md).
+# on the H100 among the geometries timed there (PERF.md).
 ITEM_EDGES = 64        # longer rows are cut into slices of at most this many
 ITEM_ROWS = 32         # most whole rows in one item
 ITEMS_PER_BLOCK = 8    # half-warps per thread block: 128 threads
-UNROLL = 8             # row gathers a half-warp issues at once (4 or 8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +62,7 @@ class CsrPlan:
     whole rows holds rows item_row[i]:item_row[i+1]; a slice holds edges
     item_edge[i]:item_edge[i+1] of row item_row[i]. `block_edges` and
     `block_rows` are the most edges and rows the items of one block of
-    `items_per_block` cover (the kernel's shared memory); `unroll` is the
-    number of row gathers a half-warp issues at once."""
+    `items_per_block` cover (the kernel's shared memory)."""
 
     table: object
     n_rows: int
@@ -74,7 +73,6 @@ class CsrPlan:
     items_per_block: int
     block_edges: int
     block_rows: int
-    unroll: int
 
     def _part(self, start, length):
         return self.table[start:start + length]
@@ -104,7 +102,7 @@ class CsrPlan:
 
 
 def plan_csr(row_ptr, item_edges=ITEM_EDGES, item_rows=ITEM_ROWS,
-             items_per_block=ITEMS_PER_BLOCK, unroll=UNROLL):
+             items_per_block=ITEMS_PER_BLOCK):
     """Cut a CSR matrix's work into items of about equal edge count, on the
     host, once (the counterpart of the Pallas grid's `_panelize`, JAX
     foodrec_tpu/ops/spmm.py:97-126). A row of more than `item_edges` edges
@@ -150,8 +148,7 @@ def plan_csr(row_ptr, item_edges=ITEM_EDGES, item_rows=ITEM_ROWS,
         n_items=n_items, n_fix=len(fix_row), n_partials=int(fix_ptr[-1]),
         items_per_block=items_per_block,
         block_edges=int(np.max(item_edge[last] - item_edge[first], initial=0)),
-        block_rows=int(np.max(item_row[last] - item_row[first], initial=0)),
-        unroll=unroll)
+        block_rows=int(np.max(item_row[last] - item_row[first], initial=0)))
 
 
 def spmm_coo(rows, cols, vals, x, n_rows):

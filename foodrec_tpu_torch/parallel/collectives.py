@@ -22,9 +22,10 @@ Two conventions of differentiation, one per axis:
 
 The collectives used (all_reduce, all_gather, broadcast) run on CUDA
 tensors over nccl and over gloo alike: asked of a gloo group on the H100,
-all three took CUDA tensors and gave the right results (chip_smoke.py's
-phase 10 asks again on every run), so no tensor goes through host memory
-here.
+all three took CUDA tensors and gave the right results (the `cuda` case of
+tests/test_torch_port_mesh.py's dry run steps a {data: 2, model: 2} mesh
+of ranks sharing one card over gloo), so no tensor goes through host
+memory here.
 """
 
 import torch

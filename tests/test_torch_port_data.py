@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from tests.conftest import make_config
+from conftest import make_config
 
 
 def _port_config(synth_root, model="CIKM_Model"):

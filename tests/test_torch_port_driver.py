@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import make_config
+from conftest import make_config
+from torch_port_fixtures import device, port_synth_root  # noqa: F401
 
 PARAM_SCALE = 8.0
 STUDY_FLAGS = {"cold_study": True, "sense_study": True,
@@ -235,11 +236,13 @@ def test_save_best_round_trips_bitwise(cikm, tmp_path):
 
 
 @pytest.fixture()
-def deterministic():
+def deterministic(monkeypatch):
     """torch's deterministic algorithms for one test: with several threads
     the CPU backward of a gather with repeated ids (`table[idx]`, an
     index_put_ that accumulates) adds in a varying order, so two runs of the
-    same step part in the last bits."""
+    same step part in the last bits; cuBLAS takes them only with a fixed
+    workspace."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     yield
@@ -292,16 +295,16 @@ def test_two_plus_two_epochs_through_save_state_equal_four(synth_root,
         assert all(torch.equal(a[k], b[k]) for k in b)
 
 
-def test_fit_resume_trains_only_the_later_epochs(synth_root, tmp_path,
-                                                 deterministic):
+def test_fit_resume_trains_only_the_later_epochs(port_synth_root, tmp_path,
+                                                 device, deterministic):
     """fit(save_state_every: 1) writes the JAX package's sanitized `.state`
     name; a fit with resume_from epoch 0's state trains epoch 1 only, keeps
     the resumed loss log, and ends on the parameters of the run that was not
-    stopped, bitwise."""
+    stopped, bitwise (on the card: the CUDA generator's state resumed)."""
     from foodrec_tpu_torch.engine.trainer import Trainer
 
-    cfg = _resume_config(synth_root, tmp_path, epochs=2, eval_step=2,
-                         save_state_every=1)
+    cfg = _resume_config(port_synth_root, tmp_path, epochs=2, eval_step=2,
+                         save_state_every=1, use_gpu=device != "cpu")
     data = _port_data(cfg)
     straight = Trainer(cfg, _port_model(cfg, data), mg=True)
     states = []

@@ -8,7 +8,10 @@ Tolerances, relative to the JAX package's value:
   * float64 (the JAX model built under x64, the port model cast to float64
     before the parameters are loaded): the summed loss and every
     parameter's gradient 1e-9
-The SpMM runs the CUDA kernel's plain version: the tensors lie on the CPU.
+The SpMM runs the CUDA kernel's plain version where the tensors lie on the
+CPU. The float32 loss's `cuda` case builds `entry("cuda")` on the card,
+where the SpMM launches the CUDA kernel, and holds it to the same JAX step
+(JAX on the CPU), 1e-5.
 """
 
 import tempfile
@@ -19,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_port_models import _buffers64
-from tests.test_torch_port_options import one_thread  # noqa: F401
-from tests.test_torch_port_schgn import _grad_err
-from tests.test_torch_port_train import _rel_err
+from test_torch_port_models import _buffers64
+from test_torch_port_options import one_thread  # noqa: F401
+from test_torch_port_schgn import _grad_err
+from test_torch_port_train import _rel_err
+from torch_port_fixtures import device  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def graft_entry(tmp_path_factory):
@@ -57,11 +62,11 @@ def graft32(graft_entry):
     return graft_entry()
 
 
-def _port_entry(jparams, dtype=torch.float32):
+def _port_entry(jparams, dtype=torch.float32, device="cpu"):
     from foodrec_tpu_torch.entry import entry
     from foodrec_tpu_torch.utils.weights import params_from_jax
 
-    fn, (model, batch) = entry("cpu")
+    fn, (model, batch) = entry(device)
     model.attn_dropout = 0.0
     model.to(dtype)
     # after .to(dtype): under x64 some JAX leaves are float64 draws
@@ -84,12 +89,18 @@ def test_entry_batch_and_model(graft32):
     assert torch.equal(loss, fn(model, batch))  # fn seeds its own generator
 
 
-def test_entry_loss_matches_jax_float32(graft32):
+def test_entry_loss_matches_jax_float32(graft32, device):
+    from foodrec_tpu_torch.ops import _kernels
+
     _, jfn, (jparams, jbatch) = graft32
     want = float(jax.jit(jfn)(jparams, jbatch))
-    fn, model, batch = _port_entry(jparams)
+    fn, model, batch = _port_entry(jparams, device=device)
+    before = _kernels.launches["spmm_csr"]
     got = fn(model, batch).detach()
     assert got.dtype == torch.float32
+    if device == "cuda":  # CIKM_Model's 1 ui + 2 ri hops through the kernel
+        assert {p.impl for p in (model.ui_prop, model.ri_prop)} == {"kernel"}
+        assert _kernels.launches["spmm_csr"] - before == 3
     err = _rel_err(float(got), want)
     assert err <= 1e-5, f"summed loss: relative error {err:.3e}"
 

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import make_config
+from conftest import make_config
 
 PARAM_SCALE = 8.0
 TOL = 1e-6

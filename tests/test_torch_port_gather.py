@@ -13,8 +13,8 @@ sorted positions, the parts of longer runs combined by 16 half-warps and a
 tree) writes every row once and equals the plain version; and one training
 step of CIKM_Model and of SCHGN takes 2 and 7 gather backwards.
 
-Marked `cuda`, on the card (no JAX is imported here, so the file runs
-there: `python3 -m pytest --noconftest tests/test_torch_port_gather.py -q`):
+Marked `cuda`, on the card (`python3 -m pytest -m cuda
+tests/test_torch_port_gather.py -q`):
 the kernel against the plain version at the main path's shapes within
 1e-6 * max|g| * sqrt(run), bit for bit against the emulation, the same bits
 on two runs, no host sync under `set_sync_debug_mode("error")`, and the
@@ -32,6 +32,7 @@ from foodrec_tpu_torch.ops.gather import (
     gather_rows,
     gather_rows_backward_plain,
 )
+from torch_port_fixtures import cuda_device  # noqa: F401
 
 D = 64
 N_INGRE = 4963             # Foodcom's ingredients; the pad id is N_INGRE
@@ -349,13 +350,6 @@ def test_training_step_takes_the_gather_backwards(cell, tmp_path,
 
 
 # ------------------------------------------------------------ on the card
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
-    return "cuda"
 
 
 CARD_CASES = ["schgn [512, 20], 82% pad", "cikm [1024, 20]", "items [512]",

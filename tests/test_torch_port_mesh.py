@@ -33,8 +33,10 @@ this file, and each test reads its job's result.
     resume_from under the mesh equals the uninterrupted run, at {data: 2}
     and at {model: 2} with gradient clipping, and save_state files cross
     between a mesh and one process
-  * the dry run, dryrun_multichip(4) and (8), prints its OK line; without
-    a card it and its CLI raise unless asked for the CPU
+  * the dry run, dryrun_multichip(1), (4) and (8), prints its OK line;
+    without a card it and its CLI raise unless asked for the CPU. Marked
+    `cuda`, the dry run on the card: one rank over NCCL, four and eight
+    sharing the card over gloo on CUDA tensors
 """
 
 import os
@@ -48,10 +50,11 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import make_config
-from tests.test_torch_port_models import _buffers64
-from tests.test_torch_port_schgn import _grad_err
-from tests.test_torch_port_train import _rel_err
+from conftest import make_config
+from test_torch_port_models import _buffers64
+from test_torch_port_schgn import _grad_err
+from test_torch_port_train import _rel_err
+from torch_port_fixtures import device  # noqa: F401
 
 X64_TOL = 1e-9
 SPAWN_TIMEOUT = 120
@@ -61,7 +64,7 @@ MG = {"alpha1": 1.0, "alpha2": 0.1, "beta": 3}
 CLIP = 0.05  # a max_norm that the toy runs' steps clip to (SGD: under
 # Adam, clipped gradients near its eps turn rounding into steps of ~lr)
 MODELS = ("CIKM_Model", "LightGCN", "BM3", "FGCN", "PRICAI_ModelX", "SCHGN")
-# the toy synthetic's row counts -> Foodcom's (FOODCOM_SCALE in chip_smoke.py)
+# the toy synthetic's row counts -> Foodcom's (bench.py:27-32)
 TOY_ROWS = {"n_users": 24, "n_items": 60, "n_ingredients": 12,
             "n_clusters": 6}
 FOODCOM_ROWS = {24: 7596, 60: 29943, 13: 4964, 12: 4963, 6: 2000}
@@ -90,7 +93,7 @@ def _jax_mesh(shape):
 
 def _spawn(n, jobs):
     from foodrec_tpu_torch.parallel.spawn import run_ranks
-    from tests import torch_mesh_workers
+    import torch_mesh_workers
 
     return run_ranks(torch_mesh_workers.run_jobs, n, args=(jobs,),
                      timeout=SPAWN_TIMEOUT, threads=1)[0]
@@ -336,7 +339,7 @@ def _picked(model_name, x512, n_model, rows=None):
     from foodrec_tpu.models import get_model as jget_model
     from foodrec_tpu_torch.models.base import row_sharded
     from foodrec_tpu_torch.utils.weights import flatten_params
-    from tests.test_torch_port_models import _port_model
+    from test_torch_port_models import _port_model
 
     overrides = CLUSSL512 if model_name == "PRICAI_ModelX" else {}
     jcfg, _ = make_config((x512, {"neg_num": 20}), model=model_name,
@@ -470,7 +473,7 @@ def test_runner_under_mesh_writes_once_and_loads_in_one_process(
         world2, synth_root):
     from foodrec_tpu_torch.engine.trainer import Trainer
     from foodrec_tpu_torch.models import get_model
-    from tests.torch_mesh_workers import _config, _data
+    from torch_mesh_workers import _config, _data
 
     hyper, valid, test = world2["runner"]
     work = world2["runner_dir"]
@@ -505,15 +508,24 @@ def test_resume_under_mesh_equals_uninterrupted(world2, case):
         _assert_states_close(states[crossed][0], full, X64_TOL)
 
 
-@pytest.mark.parametrize("n_ranks", [4, 8])
-def test_dryrun_multichip_prints_ok(n_ranks, capsys):
+@pytest.mark.parametrize("n_ranks", [1, 4, 8])
+def test_dryrun_multichip_prints_ok(n_ranks, device, capsys):
+    """On the card the ranks share it: one rank talks over NCCL, more over
+    gloo, whose collectives then take CUDA tensors; every rank launches the
+    kernel."""
     from foodrec_tpu_torch.multichip import dryrun_multichip
 
-    out = dryrun_multichip(n_ranks, device="cpu", timeout=SPAWN_TIMEOUT,
+    out = dryrun_multichip(n_ranks, device=device, timeout=SPAWN_TIMEOUT,
                            threads=1)
     line = capsys.readouterr().out
     assert f"dryrun_multichip({n_ranks}): OK" in line
-    assert out["mesh"] == ({"data": n_ranks // 2, "model": 2})
+    assert out["mesh"] == {1: {"data": 1}, 4: {"data": 2, "model": 2},
+                           8: {"data": 4, "model": 2}}[n_ranks]
+    if device == "cpu":
+        assert out["backend"] == "gloo"
+    else:
+        assert out["backend"] == ("nccl" if n_ranks == 1 else "gloo")
+        assert all(r["spmm_csr"] > 0 for r in out["launches"])
 
 
 @pytest.mark.parametrize("how", ["function", "cli"])

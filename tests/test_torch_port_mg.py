@@ -39,8 +39,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import make_config
-from tests.test_torch_port_train import (
+from conftest import make_config
+from test_torch_port_train import (
     BATCH_SIZE,
     _batch,
     _jax_epoch_batches,
@@ -50,6 +50,7 @@ from tests.test_torch_port_train import (
     _port_model,
     _rel_err,
 )
+from torch_port_fixtures import device, port_synth_root  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # beta 2 on four batches of 24: six updates an epoch, as many as the
@@ -175,38 +176,43 @@ def _mg_lockstep_main(root):
 
 
 @pytest.fixture()
-def deterministic():
+def deterministic(monkeypatch):
     """torch's deterministic algorithms for one test (the CPU backward of
-    a gather with repeated ids adds in a varying order across threads)."""
+    a gather with repeated ids adds in a varying order across threads;
+    cuBLAS takes them only with a fixed workspace)."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     yield
     torch.use_deterministic_algorithms(was)
 
 
-def _mg_model(synth_root, **extra):
+def _mg_model(synth_root, device="cpu", **extra):
     return _port_model(synth_root, _overrides({
         "attention_probs_dropout_prob": 0.5, "alpha1": 0.7, "alpha2": 0.1,
-        "beta": 1, **extra}))
+        "beta": 1, **extra}), device=device)
 
 
-def test_mg_step_replays_the_same_dropout_draws(synth_root, deterministic):
+def test_mg_step_replays_the_same_dropout_draws(port_synth_root, device,
+                                                deterministic):
     """`train_steps` on one MG batch at dropout 0.5 equals the two passes
     written out: Adam on alpha1 * g, the generator restored, the batch again,
     Adam on -alpha2 * g2; the loss parts are the first pass's. Without the
-    restore the replay draws other masks and the parameters differ."""
+    restore the replay draws other masks and the parameters differ. On the
+    card the draws are the CUDA generator's."""
     from foodrec_tpu_torch.engine.trainer import Trainer
 
-    cfg, _, model = _mg_model(synth_root)
+    cfg, _, model = _mg_model(port_synth_root, device)
     by_hand = {restore: copy.deepcopy(model) for restore in (True, False)}
     trainer = Trainer(cfg, model, mg=True)
     state0 = trainer.generator.get_state()
-    batch = tuple(torch.as_tensor(a) for a in _batch(model.dd, 3))
+    batch = tuple(torch.as_tensor(a).to(device)
+                  for a in _batch(model.dd, 3))
     parts = trainer.train_steps([batch])
     assert trainer.n_updates == 2
 
     for restore, m in by_hand.items():
-        gen = torch.Generator().set_state(state0)
+        gen = torch.Generator(device=device).set_state(state0)
         opt = torch.optim.Adam(m.parameters(), lr=cfg["learning_rate"],
                                eps=1e-8)
 

@@ -24,6 +24,13 @@ without the pretrained cluster centers. Tolerances, as the largest
     tables), loss parts, the trained model's outputs and its parameters
     1e-5, as tests/test_torch_port_train.py holds CIKM_Model
 The SpMM runs the CUDA kernel's plain version: the tensors lie on the CPU.
+
+On the CPU and, marked `cuda`, on the card: BM3, FGCN and CLUSSL through
+the kernel impl against `segment` on the same parameters and batch
+(eval_cache 1e-5, loss parts 1e-5, gradients as above), and one epoch
+through the kernel with its launches counted, a forward and a backward
+product for every hop of every graph. On the card only, the JAX package's
+LightGCN accuracy gate through the kernel (bench.py:114-131).
 """
 
 import os
@@ -36,14 +43,19 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import make_config
-from tests.test_torch_port_train import (
+from conftest import make_config
+from test_torch_port_train import (
     _assert_rel,
     _jax_epoch_batches,
     _jax_loss_and_grads,
     _port_loss_and_grads,
     _rel_err,
     _torch_tree,
+)
+from torch_port_fixtures import (  # noqa: F401
+    cuda_device,
+    device,
+    port_synth_root,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,7 +88,7 @@ def _overrides(extra):
 
 
 def _port_model(synth_root, name, overrides, jparams=None,
-                dtype=torch.float32, seed=0):
+                dtype=torch.float32, seed=0, device="cpu"):
     from foodrec_tpu_torch.config import Config
     from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
     from foodrec_tpu_torch.data.device import DeviceData
@@ -86,7 +98,8 @@ def _port_model(synth_root, name, overrides, jparams=None,
     root, meta = synth_root
     cfg = Config(name, "Synth", {
         "data_path": root.rsplit("/Synth", 1)[0] + "/",
-        "neg_sample_num": meta["neg_num"], "use_gpu": False, **overrides})
+        "neg_sample_num": meta["neg_num"], "use_gpu": device != "cpu",
+        **overrides})
     derive_data_paths(cfg, "Synth")
     data = FoodData(cfg)
     data.device_data = DeviceData.from_food_data(data)
@@ -113,7 +126,7 @@ def _jax_model(synth_root, name, overrides):
 
 
 @pytest.fixture(scope="module", params=VARIANTS, ids=[v[0] for v in VARIANTS])
-def pair(request, synth_root):
+def pair(request, synth_root, x64_run):
     vid, name, extra = request.param
     overrides = _overrides(extra)
     jcfg, jdata, jmodel, jparams = _jax_model(synth_root, name, overrides)
@@ -229,13 +242,13 @@ def test_calculate_loss_matches_jax(pair, seed):
                     f"jax f64 grad {k}")
 
 
-@pytest.fixture(scope="module", autouse=True)
+@pytest.fixture(scope="module")
 def x64_run(synth_root, tmp_path_factory):
     """This file run as a script under JAX_ENABLE_X64 (a subprocess, because
-    x64 must be set before JAX configures itself), started when the
-    module's first test starts so that it runs beside the float32 tests;
-    killed at teardown if nothing waited for it. Yields (process, stdout
-    path, stderr path)."""
+    x64 must be set before JAX configures itself), started with the first
+    test that compares with the JAX package so that it runs beside the
+    float32 tests; killed at teardown if nothing waited for it. Yields
+    (process, stdout path, stderr path)."""
     env = dict(os.environ)
     env.update({"JAX_PLATFORMS": "cpu", "JAX_ENABLE_X64": "True",
                 "OMP_NUM_THREADS": "1",
@@ -375,6 +388,114 @@ def _lockstep(root, vid):
     print(f"lockstep {vid} " + " ".join(f"worst_{k}={v:.3e}"
                                         for k, v in worst.items()))
     print(f"lockstep {vid} pass={ok}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the kernel impl against segment, on the CPU and on the card
+# ---------------------------------------------------------------------------
+
+# hops a forward of each propagator: the SpMM products of one step
+HOPS = {
+    "BM3": lambda m: {"prop": m.n_layers},
+    "FGCN": lambda m: {"ii_prop": m.n_layers, "ir_prop": len(m.layers) - 1,
+                       "ru_prop": len(m.layers) - 1},
+    "PRICAI_ModelX": lambda m: {
+        "ingre_prop": m.n_ri_layers, "image_prop": m.n_ri_layers,
+        "text_prop": m.n_ri_layers, "ui_prop": m.n_ui_layers},
+}
+
+
+def _loss_and_grads(model, batch, seed):
+    model.zero_grad(set_to_none=True)
+    parts = model.calculate_loss(*batch, generator=torch.Generator(
+        device=model.device).manual_seed(seed))
+    sum(parts).backward()
+    return (torch.stack(parts).detach().cpu().numpy(),
+            {k: p.grad.cpu().numpy() for k, p in model.named_parameters()})
+
+
+@pytest.mark.parametrize("vid", ["bm3", "fgcn-gcn", "clussl"])
+def test_kernel_impl_matches_segment_and_counts_its_launches(
+        port_synth_root, monkeypatch, vid, device):
+    """The model through the kernel impl against the same model through
+    `segment`, same parameters, batch and draws: eval_cache, the loss parts
+    and every gradient; then one epoch through the kernel takes a forward
+    and a backward product for every hop of every graph, each step (on the
+    card each a launch of the kernel)."""
+    from foodrec_tpu_torch.engine.trainer import Trainer
+    from foodrec_tpu_torch.ops import _kernels
+    from foodrec_tpu_torch.ops import spmm as spmm_mod
+
+    _, name, extra = _variant(vid)
+    grad_tol = DCOR_GRAD_TOL if name == "PRICAI_ModelX" else GRAD_TOL
+    kernel, segment = (_port_model(port_synth_root, name, _overrides(
+        {**extra, "spmm_impl": impl}), device=device)[2]
+        for impl in ("kernel", "segment"))
+    segment.load_state_dict(kernel.state_dict())
+    hops = HOPS[name](kernel)
+    assert {n: p.impl for n, p in kernel.named_children()
+            if isinstance(p, spmm_mod.Propagator)} == dict.fromkeys(
+        hops, "kernel")
+    for a, b in zip(kernel.eval_cache(), segment.eval_cache()):
+        _assert_rel(a.cpu().numpy(), b.cpu().numpy(), TOL, "eval_cache")
+    batch = tuple(torch.as_tensor(a).to(device)
+                  for a in _batch(kernel.dd, 0))
+    parts, grads = _loss_and_grads(kernel, batch, 5)
+    parts_s, grads_s = _loss_and_grads(segment, batch, 5)
+    for i, (a, b) in enumerate(zip(parts, parts_s)):
+        _assert_rel(a, b, TOL, f"loss part {i}")
+    for k, g in grads.items():
+        _assert_rel(g, grads_s[k], grad_tol, f"grad {k}")
+
+    calls = {"spmm_csr": 0, "spmm_csr_bwd": 0}
+    spmm_csr = spmm_mod.spmm_csr
+
+    def counted(*args, count="spmm_csr", **kwargs):
+        calls[count] += 1
+        return spmm_csr(*args, count=count, **kwargs)
+
+    monkeypatch.setattr(spmm_mod, "spmm_csr", counted)
+    trainer = Trainer(kernel.config, kernel)
+    before = {k: _kernels.launches[k] for k in calls}
+    parts = trainer.train_epoch()
+    assert torch.isfinite(parts).all()
+    want = sum(hops.values()) * trainer.n_batches
+    assert calls == {"spmm_csr": want, "spmm_csr_bwd": want}
+    if device != "cpu":
+        assert {k: _kernels.launches[k] - before[k] for k in calls} == calls
+
+
+# the JAX package's accuracy gate (bench.py:114-131): parity_check.py's
+# structured synthetic (TOY_SCALE, parity_check.py:32-35), 30 epochs
+GATE_SCALE = dict(n_users=800, n_items=1600, n_ingredients=300,
+                  n_cal_levels=20, n_health_levels=6, n_clusters=50,
+                  img_dim=64, txt_dim=32, neg_num=100, latent_dim=8,
+                  train_per_user=(10, 21), valid_per_user=(2, 4),
+                  test_per_user=(2, 5), seed=17)
+GATE_EPOCHS, GATE_AUC, GATE_NDCG20 = 30, 0.80, 0.38
+
+
+@pytest.mark.cuda
+def test_lightgcn_accuracy_gate_on_the_card(cuda_device, tmp_path):
+    """LightGCN through the kernel learns the structured synthetic: AUC >=
+    0.80 and NDCG@20 >= 0.38 on test after 30 epochs."""
+    from foodrec_tpu_torch.data import synthetic
+    from foodrec_tpu_torch.engine.trainer import Trainer
+
+    synthetic.generate(str(tmp_path / "Synth"), **GATE_SCALE)
+    cfg, data, model = _port_model(
+        (str(tmp_path / "Synth"), GATE_SCALE), "LightGCN",
+        {"seed": 999, "epochs": GATE_EPOCHS, "spmm_impl": "kernel"},
+        seed=999, device=cuda_device)
+    assert model.prop.impl == "kernel"
+    trainer = Trainer(cfg, model)
+    for _ in range(GATE_EPOCHS):
+        parts = trainer.train_epoch()
+        trainer.scheduler.step()
+    assert torch.isfinite(parts).all()
+    metrics = trainer.evaluate(data.device_data.eval_test, is_test=True)
+    assert metrics["AUC"] >= GATE_AUC and metrics["NDCG@20"] >= GATE_NDCG20, \
+        metrics
 
 
 # ---------------------------------------------------------------------------

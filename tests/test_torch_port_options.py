@@ -31,10 +31,10 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import make_config
-from tests.test_torch_port_models import _buffers64, _port_model
-from tests.test_torch_port_schgn import _grad_err
-from tests.test_torch_port_train import _rel_err
+from conftest import make_config
+from test_torch_port_models import _buffers64, _port_model
+from test_torch_port_schgn import _grad_err
+from test_torch_port_train import _rel_err
 
 X64_TOL = 1e-9
 LEARNER_TOL = 1e-12
@@ -206,7 +206,7 @@ def _health_case(dd, seed, b=300):
     """Users, positives and a bitmap that excludes most items for some
     users (the uniform fall-back's and the last draw's cases), and bucket
     arrays with one level emptied."""
-    from tests.test_torch_port_train import _bitmap
+    from test_torch_port_train import _bitmap
 
     rng = np.random.default_rng(seed)
     users = rng.integers(0, dd.num_users, b)

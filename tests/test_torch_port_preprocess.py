@@ -29,6 +29,7 @@ import torch
 from foodrec_tpu.data import preprocess as jpp
 from foodrec_tpu_torch.data import kmeans as pkm
 from foodrec_tpu_torch.data import preprocess as ppp
+from torch_port_fixtures import device  # noqa: F401
 
 N_DATES = 30
 
@@ -301,12 +302,13 @@ def test_kmeans_inertia_within_2_percent_of_sklearn():
     assert np.median(ours) <= 1.02 * np.median(theirs), (ours, theirs)
 
 
-def test_kmeans_reassigns_and_fills_every_cluster():
+def test_kmeans_reassigns_and_fills_every_cluster(device):
     """More clusters than the data's blobs: the low-count reassignment keeps
-    no centre empty, and the fit stops early."""
+    no centre empty, and the fit stops early (on the card, from the CUDA
+    generator's draws)."""
     rng = np.random.default_rng(3)
     x = rng.normal(size=(3000, 8))
-    km = pkm.minibatch_kmeans(x, 300, seed=5, device="cpu")
+    km = pkm.minibatch_kmeans(x, 300, seed=5, device=device)
     assert km.centers.dtype == np.float64
     labels, inertia = pkm.labels_inertia(torch.from_numpy(x),
                                          torch.from_numpy(km.centers))
@@ -324,7 +326,7 @@ def test_pipeline_entry_points_ask_for_cuda(monkeypatch):
 
 
 def test_extractors_match_jax_with_the_fakes(tmp_path):
-    from tests.test_feature_extractors import (FakeBackbone, FakeEncoder,
+    from test_feature_extractors import (FakeBackbone, FakeEncoder,
                                                FakeTokenizer, _write_images)
 
     texts = [f"recipe number {i}" for i in range(7)]

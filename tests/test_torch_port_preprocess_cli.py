@@ -30,11 +30,11 @@ import torch
 
 from foodrec_tpu.data import preprocess_cli as jcli
 from foodrec_tpu_torch.data import preprocess_cli as pcli
-from tests.test_preprocess_cli import KW_NAMES, _write_foodcom, _write_generic
-from tests.test_torch_port_models import _buffers64, _port_model
-from tests.test_torch_port_options import _jax_model
-from tests.test_torch_port_preprocess import _assert_same_files
-from tests.test_torch_port_train import _rel_err
+from test_preprocess_cli import KW_NAMES, _write_foodcom, _write_generic
+from test_torch_port_models import _buffers64, _port_model
+from test_torch_port_options import _jax_model
+from test_torch_port_preprocess import _assert_same_files
+from test_torch_port_train import _rel_err
 
 X64_TOL = 1e-9
 N_NEG, N_CLUSTERS = 6, 4
@@ -196,7 +196,7 @@ def test_food_data_on_the_port_tree_equals_jax(trees):
     from foodrec_tpu.data.dataset import FoodData as JFoodData
     from foodrec_tpu_torch.config import Config
     from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
-    from tests.conftest import make_config
+    from conftest import make_config
 
     _share_clusters(trees)
     # the JAX loader reads no empty graph: Allrecipes' few ingredient names

@@ -31,11 +31,11 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import make_config
-from tests.test_torch_port_data import _port_config
-from tests.test_torch_port_models import _buffers64, _port_model
-from tests.test_torch_port_spmm_plan import levels_edges
-from tests.test_torch_port_train import (
+from conftest import make_config
+from test_torch_port_data import _port_config
+from test_torch_port_models import _buffers64, _port_model
+from test_torch_port_spmm_plan import levels_edges
+from test_torch_port_train import (
     _assert_rel,
     _perturb,
     _rel_err,

@@ -1,6 +1,10 @@
 """PyTorch port, serving slice: CIKM_Model with the JAX package's parameters
 (carried over by params_from_jax) gives the same embeddings, metrics and
-top-k as the JAX package on the same synthetic dataset."""
+top-k as the JAX package on the same synthetic dataset.
+
+The by-user metrics' cases run on the CPU against the JAX package and,
+marked `cuda`, on the card, where the kernel is held to the plain path bit
+for bit."""
 
 import ctypes
 import os
@@ -12,9 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import BY_USER_CASES, by_user_case
+from conftest import make_config
 from foodrec_tpu_torch.ops import _kernels
-from tests.conftest import make_config
+from torch_port_fixtures import device  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6   # float32 SpMM sums taken in other orders
 # params are scaled up so that scores spread well beyond float32 noise and
@@ -179,7 +183,63 @@ def test_by_user_metrics_exactly_equal_to_jax(seed):
         assert got["auc"][tied] == 0
 
 
-# what each edge case has to hold for the test to mean anything
+BY_USER_CASES = ("pos_neg_ties", "signed_zeros", "nan_inf", "few_candidates",
+                 "no_positives", "many_positives", "odd_width")
+# the main path's by-user block: users x slots (Foodcom's 8-16 test
+# positives a user, ~500 negatives); 7,596 test users leave the last block
+# with 172 real rows
+METRIC_BLOCK = (256, 640)
+METRIC_NEG = 500
+METRIC_CASES = BY_USER_CASES + ("main 256x640", "last padded block")
+
+
+def by_user_case(name, seed=999):
+    """One case of the by-user metrics, as numpy: (scores float32 [B, C],
+    n_pos int64 [B], n_cand int64 [B], neg_num)."""
+    rng = np.random.default_rng([seed, METRIC_CASES.index(name)])
+    if name in ("main 256x640", "last padded block"):
+        b, c = METRIC_BLOCK
+        n_pos = rng.integers(8, 17, b)
+        n_cand = n_pos + METRIC_NEG - rng.integers(0, 4, b)
+        scores = rng.standard_normal((b, c)).astype(np.float32)
+        if name == "last padded block":  # pad rows score user 0's first slot
+            n_pos[172:] = n_cand[172:] = 0
+            scores[172:] = scores[0, 0]
+        return scores, n_pos, n_cand, METRIC_NEG
+    b, neg_num = 12, 40
+    c = {"odd_width": 37, "many_positives": 96}.get(name, 64)
+    n_pos = rng.integers(1, 9, b)
+    if name == "no_positives":
+        n_pos[:] = 0
+    elif name == "many_positives":
+        n_pos = rng.integers(21, 48, b)
+    n_cand = np.minimum(n_pos + rng.integers(12, c, b), c)
+    if name == "few_candidates":
+        n_cand = np.minimum(n_pos + rng.integers(0, 12, b), 19)
+    scores = rng.standard_normal((b, c)).astype(np.float32)
+    if name == "pos_neg_ties":
+        scores = np.round(scores * 2) / 2  # a coarse grid: many ties
+        scores[0] = 0.25                   # every score tied: positives win
+    elif name == "signed_zeros":
+        scores[:, :] = np.where(rng.random((b, c)) < 0.5, scores, 0.0)
+        neg_zero = np.copysign(np.float32(0), -1)
+        for row in range(b):  # -0.0 positives over +0.0 negatives, and back
+            pos_zero = row % 2 == 0
+            scores[row, :n_pos[row]] = neg_zero if pos_zero else 0.0
+            rest = scores[row, n_pos[row]:] == 0
+            scores[row, n_pos[row]:][rest] = 0.0 if pos_zero else neg_zero
+    elif name == "nan_inf":
+        special = np.float32([np.nan, np.copysign(np.nan, -1), np.inf,
+                              -np.inf])
+        hit = rng.random((b, c)) < 0.3
+        scores[hit] = rng.choice(special, int(hit.sum()))
+    elif name == "no_positives":
+        n_cand[: b // 3] = 0   # the pad rows of a last block
+        scores[: b // 3] = scores[0, 0]
+    return scores, n_pos.astype(np.int64), n_cand.astype(np.int64), neg_num
+
+
+# what each case has to hold for the test to mean anything
 _CASE_PREMISE = {
     "pos_neg_ties": lambda s, p, n: any(
         np.isin(s[r, :p[r]], s[r, p[r]:n[r]]).any() for r in range(len(s))),
@@ -191,30 +251,48 @@ _CASE_PREMISE = {
     "no_positives": lambda s, p, n: (p == 0).all() and (n == 0).any(),
     "many_positives": lambda s, p, n: p.min() > 20,
     "odd_width": lambda s, p, n: s.shape[1] % 4 != 0,
+    "main 256x640": lambda s, p, n: s.shape == METRIC_BLOCK
+    and p.min() >= 8 and p.max() <= 16 and n.min() > METRIC_NEG,
+    "last padded block": lambda s, p, n: s.shape == METRIC_BLOCK
+    and (n[172:] == 0).all() and (n[:172] > 0).all(),
 }
 
 
-@pytest.mark.parametrize("case", BY_USER_CASES)
-def test_by_user_metrics_edge_cases_equal_jax(case):
-    """The plain path equals the JAX package bit for bit on the cases that
-    chip_smoke.py holds the card's kernel to (the kernel against the plain
-    path): positives tied with negatives, -0.0 against +0.0, NaN of both
-    signs and +-inf, n_cand < 20, n_pos = 0 with pad rows, n_pos > 20, a
-    width that is not a multiple of 4."""
-    from foodrec_tpu.engine.evaluator import by_user_metrics as jmetrics
-    from foodrec_tpu_torch.engine.evaluator import by_user_metrics
+@pytest.mark.parametrize("case", METRIC_CASES)
+def test_by_user_metrics_edge_cases_equal_jax(case, device):
+    """On the CPU the plain path equals the JAX package bit for bit; on the
+    card the kernel (one launch a call) equals the plain path bit for bit,
+    twice. The cases: positives tied with negatives, -0.0 against +0.0,
+    NaN of both signs and +-inf, n_cand < 20, n_pos = 0 with pad rows,
+    n_pos > 20, a width that is not a multiple of 4, and the main path's
+    256 x 640 block, whole and as the last block, padded."""
+    from foodrec_tpu_torch.engine.evaluator import (
+        by_user_metrics,
+        by_user_metrics_plain,
+    )
 
     scores, n_pos, n_cand, neg_num = by_user_case(case)
     assert _CASE_PREMISE[case](scores, n_pos, n_cand)
-    want = jmetrics(scores, n_pos.astype(np.int32), n_cand.astype(np.int32),
-                    neg_num=neg_num)
-    got = by_user_metrics(torch.from_numpy(scores), torch.from_numpy(n_pos),
-                          torch.from_numpy(n_cand), neg_num=neg_num)
-    assert sorted(got) == sorted(want)
-    for k in want:
-        g, w = got[k].numpy(), np.asarray(want[k])
-        assert g.dtype == w.dtype == np.float32, k
-        assert np.array_equal(g.view(np.int32), w.view(np.int32)), (k, g, w)
+    host = [torch.from_numpy(a) for a in (scores, n_pos, n_cand)]
+    if device == "cpu":
+        from foodrec_tpu.engine.evaluator import by_user_metrics as jmetrics
+
+        want = jmetrics(scores, n_pos.astype(np.int32),
+                        n_cand.astype(np.int32), neg_num=neg_num)
+        runs = [by_user_metrics(*host, neg_num=neg_num)]
+    else:
+        want = by_user_metrics_plain(*host, neg_num)
+        before = _kernels.launches["by_user_metrics"]
+        runs = [by_user_metrics(*(t.to(device) for t in host), neg_num)
+                for _ in "12"]
+        assert _kernels.launches["by_user_metrics"] - before == 2
+    for got in runs:
+        assert sorted(got) == sorted(want)
+        for k in want:
+            g, w = got[k].cpu().numpy(), np.asarray(want[k])
+            assert g.dtype == w.dtype == np.float32, k
+            assert np.array_equal(g.view(np.int32), w.view(np.int32)), (k, g,
+                                                                        w)
 
 
 def test_cpu_tensors_never_reach_the_kernel(monkeypatch):

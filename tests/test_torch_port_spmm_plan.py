@@ -7,8 +7,8 @@ edge by edge, each cut row's slices into a scratch, then the fix-up adding
 them in item order on two half-warps) against `spmm_csr_plain` and the JAX
 package's `segment` and Pallas (interpret mode) impls, rtol 1e-5 / atol
 1e-6 (float32 sums taken in other orders). The CUDA kernel itself runs
-only on the card, where chip_smoke.py holds it against the plain
-version.
+only on the card, where the `cuda` cases of tests/test_torch_port_spmm.py
+hold it against the plain version.
 
 bf16 mode follows the JAX package per impl: the kernel impl (its plain
 version on the CPU) against JAX `pallas` with compute_dtype bfloat16 at rtol
@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_port_spmm import _adjs, _row_normalized_adjs
+from test_torch_port_spmm import _adjs, _row_normalized_adjs
 
 RTOL, ATOL = 1e-5, 1e-6
 BF16_TOL = 3e-2

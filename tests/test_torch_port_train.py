@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.conftest import make_config
+from conftest import make_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
@@ -272,7 +272,8 @@ def _overrides(extra=None):
             "train_batch_size": BATCH_SIZE, **(extra or {})}
 
 
-def _port_model(synth_root, overrides, jparams=None, dtype=torch.float32):
+def _port_model(synth_root, overrides, jparams=None, dtype=torch.float32,
+                device="cpu"):
     from foodrec_tpu_torch.config import Config
     from foodrec_tpu_torch.data.dataset import FoodData, derive_data_paths
     from foodrec_tpu_torch.data.device import DeviceData
@@ -282,7 +283,8 @@ def _port_model(synth_root, overrides, jparams=None, dtype=torch.float32):
     root, meta = synth_root
     cfg = Config("CIKM_Model", "Synth", {
         "data_path": root.rsplit("/Synth", 1)[0] + "/",
-        "neg_sample_num": meta["neg_num"], "use_gpu": False, **overrides})
+        "neg_sample_num": meta["neg_num"], "use_gpu": device != "cpu",
+        **overrides})
     derive_data_paths(cfg, "Synth")
     data = FoodData(cfg)
     data.device_data = DeviceData.from_food_data(data)

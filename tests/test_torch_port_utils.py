@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_port_models import _port_model
-from tests.test_torch_port_train import _rel_err
+from test_torch_port_models import _port_model
+from test_torch_port_train import _rel_err
 
 TOL = 1e-6
 
