@@ -32,7 +32,9 @@ gather_rows_bwd within 1e-6 * max|g| * sqrt(the longest run of one id).
 A time is the median device time of a launch, by CUDA events, with the L2
 cache flushed before each (a 256 MB read), and the mean of launches queued
 back to back with the L2 warm; bounds come from portbench/peaks.py. Each
-kernel's launches are counted over one call of the main path. The line
+kernel's launches are counted over one call of the main path; a training
+step's on a step that replays the loss block's CUDA graphs, the kernels
+inside them by name from a device trace of it. The line
 before the last is the kernels' JSON record; the last line is {"ok": true,
 "device": {...}}. The kernels build into build/kernels/ (gitignored).
 """
@@ -61,6 +63,9 @@ METRIC_BLOCK, METRIC_NEG = (256, 640), 500
 N_INGREDIENTS = 4963
 GATHER_CASES = {"CIKM_Model [1024, 20]": ((1024, 20), N_INGREDIENTS + 1),
                 "SCHGN [512, 20]": ((512, 20), N_INGREDIENTS + 2)}
+# the hand-written kernels that a replayed loss block launches, by the
+# names a device trace gives them: gather_rows_bwd's two passes
+GRAPH_KERNELS = ("gather_bwd_tiles", "gather_bwd_rows")
 
 
 def log(msg):
@@ -153,6 +158,44 @@ def launches_of(torch, kernels, fn):
     torch.cuda.synchronize()
     return {k: v - before[k] for k, v in kernels.launches.items()
             if v != before[k]}
+
+
+def step_launches(torch, kernels, trainer, batch):
+    """(capture, replay): {kernel: launches} of a model's first training
+    step on the main path, which captures its loss block as CUDA graphs
+    (`kernels.launches`: the warm-up's and the capture's), and of the next,
+    which replays them. A replay launches the block's kernels as graph
+    nodes, which `kernels.launches` does not see: the replayed step gives
+    `kernels.launches` of what stays eager (the SpMM) and, by kernel name
+    from a device trace, where a graph's nodes appear one by one, each
+    kernel of GRAPH_KERNELS."""
+    import tempfile
+
+    from foodrec_tpu_torch.common import step_graph
+    from portbench.trace import Trace
+
+    def step():
+        trainer.train_steps([batch])
+
+    captures = step_graph.captures
+    capture = launches_of(torch, kernels, step)
+    if step_graph.captures != captures + 1:
+        raise AssertionError("the first training step captured "
+                             f"{step_graph.captures - captures} graphs, not 1")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        replay = launches_of(torch, kernels, step)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        names = [d[2] for d in Trace.load(path).device]
+    if step_graph.captures != captures + 1 or "gather_rows_bwd" in replay:
+        raise AssertionError("the second training step did not replay the "
+                             "captured loss block")
+    for k in GRAPH_KERNELS:
+        replay[k] = sum(k in n for n in names)
+    return capture, replay
 
 
 def close(name, got, want, bar):
@@ -290,7 +333,7 @@ def spmm_entries(torch, kernels, spmm, cikm, schgn, flush):
     """The SpMM's forward and backward entries: times summed over the
     products of CIKM_Model's main path (1 ui + 2 ri hops), every graph's
     own under `per_graph`; launches counted over one eval_cache and one
-    training step of CIKM_Model."""
+    replayed training step of CIKM_Model."""
     from foodrec_tpu_torch.engine.trainer import Trainer
 
     (cfg, fd, model), (_, _, schgn_model) = cikm, schgn
@@ -311,11 +354,10 @@ def spmm_entries(torch, kernels, spmm, cikm, schgn, flush):
         log_spmm("_bwd", name, bwd[name])
     with torch.no_grad():
         serve = launches_of(torch, kernels, model.eval_cache)
-    trainer = Trainer(cfg, model)
-    step = launches_of(torch, kernels, lambda: trainer.train_steps(
-        [train_batch(torch, fd.device_data, SEED)]))
+    capture, step = step_launches(torch, kernels, Trainer(cfg, model),
+                                  train_batch(torch, fd.device_data, SEED))
     log(f"[launches] one CIKM_Model eval_cache {serve}; one training step "
-        f"{step}")
+        f"{step} (the step that captured its loss block {capture})")
 
     def entry(per_graph, **fields):
         return {"route": "cuda",
@@ -332,8 +374,8 @@ def spmm_entries(torch, kernels, spmm, cikm, schgn, flush):
               launches=serve["spmm_csr"]),
         entry(bwd, name="spmm_csr_bwd",
               replaces="foodrec_tpu/ops/spmm.py:129 (custom VJP :263-273)",
-              per="one CIKM_Model training step: 2 ri_prop + 1 ui_prop "
-                  "backward hops", launches=step["spmm_csr_bwd"])]
+              per="one replayed CIKM_Model training step: 2 ri_prop + 1 "
+                  "ui_prop backward hops", launches=step["spmm_csr_bwd"])]
 
 
 def metrics_entry(torch, kernels, cikm, flush):
@@ -399,14 +441,15 @@ def gather_entry(torch, kernels, cikm_step, schgn, flush):
     """gather_rows_bwd at the two models' shapes beside its sort, its plain
     version and PyTorch's index_put_(accumulate=True), what table[idx]'s
     backward runs; the entry's times are CIKM_Model's case, its launches
-    those of one training step of CIKM_Model, and of SCHGN beside them."""
+    those of one replayed training step of CIKM_Model, and of SCHGN beside
+    them."""
     from foodrec_tpu_torch.engine.trainer import Trainer
     from foodrec_tpu_torch.ops.gather import RowIds, gather_rows_backward_plain
 
     cfg, fd, model = schgn
-    trainer = Trainer(cfg, model)
-    schgn_step = launches_of(torch, kernels, lambda: trainer.train_steps(
-        [train_batch(torch, fd.device_data, SEED)]))
+    schgn_capture, schgn_step = step_launches(
+        torch, kernels, Trainer(cfg, model),
+        train_batch(torch, fd.device_data, SEED))
     rng = np.random.default_rng(SEED + 3)
     cases = {}
     for name, (shape, n_rows) in GATHER_CASES.items():
@@ -439,17 +482,22 @@ def gather_entry(torch, kernels, cikm_step, schgn, flush):
             f"us; index_put_ {t['library_ms'] * 1e3:.1f} us; bound "
             f"({moved / 1e6:.2f} MB) {t['bound_ms'] * 1e3:.2f} us; "
             f"max|kernel - plain| {err:.3e}")
-    steps = {"CIKM_Model": cikm_step.get("gather_rows_bwd", 0),
-             "SCHGN": schgn_step.get("gather_rows_bwd", 0)}
-    log(f"[launches] gather_rows_bwd a training step: {steps}; one SCHGN "
-        f"step {schgn_step}")
+    steps = {"CIKM_Model": cikm_step["gather_bwd_tiles"],
+             "SCHGN": schgn_step["gather_bwd_tiles"]}
+    for name, st in (("CIKM_Model", cikm_step), ("SCHGN", schgn_step)):
+        if st["gather_bwd_rows"] != st["gather_bwd_tiles"]:
+            raise AssertionError(f"{name}'s replayed step: gather_bwd_tiles "
+                                 f"and gather_bwd_rows launch unequally {st}")
+    log(f"[launches] gather_rows_bwd a replayed training step: {steps}; "
+        f"one SCHGN step {schgn_step} (the step that captured its loss "
+        f"block {schgn_capture})")
     main = cases["CIKM_Model [1024, 20]"]
     return {"name": "gather_rows_bwd", "route": "cuda",
             "source": "foodrec_tpu_torch/csrc/gather_rows_bwd.cu",
             "replaces": "none (the JAX package's gathers go to XLA)",
             "per": "one gather's backward at CIKM_Model's [1024, 20] (the "
-                   "sort is per id tensor); launches: one CIKM_Model "
-                   "training step",
+                   "sort is per id tensor); launches: one replayed "
+                   "CIKM_Model training step",
             **{k: main[k] for k in ("ms", "warm_ms", "host_ms", "sort_ms",
                                     "bound_ms", "bound_by", "plain_ms",
                                     "library_ms")},

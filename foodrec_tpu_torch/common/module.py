@@ -17,7 +17,11 @@
 
 Parameters are dicts of tensors in the JAX package's layout (linear weights
 [in, out]); the model wraps them as `nn.ParameterDict`s. Dropout draws from
-an explicit `torch.Generator` on the tensors' device.
+an explicit `torch.Generator` on the tensors' device, at each site as the
+block reaches it, or comes pre-drawn: `*_masks` draw an encoder call's masks
+through `dropout` in the order its sites take them, and the encoder applies
+them (`masks=`) bit for bit as the generator path would, so that a block
+can run without a generator (a CUDA graph's replay, common/step_graph.py).
 """
 
 import math
@@ -74,6 +78,36 @@ def dropout(x, rate, generator, rows=False):
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
+def apply_dropout_mask(x, mask, rate):
+    """`dropout(x, rate, ...)` with its draw taken from `mask`, which is
+    `dropout` of ones (1 / (1 - rate) where it keeps, 0 where it drops):
+    the same values bit for bit."""
+    return torch.where(mask != 0, x / (1.0 - rate), 0.0)
+
+
+def _dropper(generator, masks):
+    """drop(x, rate) for the dropout sites of one encoder call, in order:
+    each drawn from `generator` as `dropout(..., rows=True)` draws it, or,
+    with `masks`, the next pre-drawn mask applied. A rate of 0 draws
+    nothing and takes no mask."""
+    if masks is None:
+        return lambda x, rate: dropout(x, rate, generator, rows=True)
+    it = iter(masks)
+
+    def drop(x, rate):
+        return x if rate == 0.0 else apply_dropout_mask(x, next(it), rate)
+
+    return drop
+
+
+def _draw_masks(sites, generator, device, dtype):
+    """The mask of each (shape, rate) site with a rate, in order: `dropout`
+    of ones, as the encoders draw it."""
+    return [dropout(torch.ones(shape, device=device, dtype=dtype), rate,
+                    generator, rows=True)
+            for shape, rate in sites if rate != 0.0]
+
+
 # ---------------------------------------------------------------------------
 # torch nn.TransformerEncoder semantics
 # ---------------------------------------------------------------------------
@@ -103,9 +137,10 @@ def transformer_encoder_params(generator, d_model, dim_ff, n_layers):
     return layers
 
 
-def _mha(p, x, nhead, pad_mask, drop_rate, generator):
+def _mha(p, x, nhead, pad_mask, drop_rate, drop):
     """Multi-head self-attention: x [B, L, D], pad_mask [B, L] True at
-    padding; -inf at padded keys."""
+    padding; -inf at padded keys; `drop` (`_dropper`) takes the attention
+    probabilities' dropout."""
     b, L, d = x.shape
     dh = d // nhead
     qkv = x @ p["in_proj_w"] + p["in_proj_b"]          # [B, L, 3D]
@@ -121,27 +156,42 @@ def _mha(p, x, nhead, pad_mask, drop_rate, generator):
     attn = torch.softmax(logits, dim=-1)
     # a fully padded row softmaxes to NaN; keep it finite (module.py:100-102)
     attn = torch.where(torch.isnan(attn), 0.0, attn)
-    attn = dropout(attn, drop_rate, generator, rows=True)
+    attn = drop(attn, drop_rate)
     out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
     out = out.transpose(1, 2).reshape(b, L, d)
     return out @ p["out_proj_w"] + p["out_proj_b"]
 
 
 def transformer_encoder_apply(params, x, nhead, pad_mask=None, act="gelu",
-                              drop_rate=0.0, generator=None):
+                              drop_rate=0.0, generator=None, masks=None):
     """Post-LN encoder stack (torch's default norm_first=False):
-    x = LN1(x + Drop(MHA(x))); x = LN2(x + Drop(FF2(Drop(Act(FF1(x))))))."""
+    x = LN1(x + Drop(MHA(x))); x = LN2(x + Drop(FF2(Drop(Act(FF1(x)))))).
+    The dropouts draw from `generator`, or take `masks`
+    (`transformer_encoder_masks`)."""
     act_fn = ACT[act]
+    drop = _dropper(generator, masks)
     for p in params:
-        a = _mha(p, x, nhead, pad_mask, drop_rate, generator)
-        x = layer_norm(x + dropout(a, drop_rate, generator, rows=True),
-                       p["ln1_g"], p["ln1_b"])
-        h = act_fn(x @ p["ff1_w"] + p["ff1_b"])
-        h = dropout(h, drop_rate, generator, rows=True)
+        a = _mha(p, x, nhead, pad_mask, drop_rate, drop)
+        x = layer_norm(x + drop(a, drop_rate), p["ln1_g"], p["ln1_b"])
+        h = drop(act_fn(x @ p["ff1_w"] + p["ff1_b"]), drop_rate)
         h = h @ p["ff2_w"] + p["ff2_b"]
-        x = layer_norm(x + dropout(h, drop_rate, generator, rows=True),
-                       p["ln2_g"], p["ln2_b"])
+        x = layer_norm(x + drop(h, drop_rate), p["ln2_g"], p["ln2_b"])
     return x
+
+
+def transformer_encoder_masks(params, shape, nhead, drop_rate, generator,
+                              device, dtype):
+    """The dropout masks `transformer_encoder_apply` draws from `generator`
+    over an x of `shape` [B, L, D], drawn in its order: per layer the
+    attention probabilities' [B, H, L, L], the attention output's, the
+    feed-forward's inner [B, L, dim_ff] and its output's."""
+    b, L, d = shape
+    sites = []
+    for p in params:
+        sites += [((b, nhead, L, L), drop_rate), ((b, L, d), drop_rate),
+                  ((b, L, p["ff1_w"].shape[1]), drop_rate),
+                  ((b, L, d), drop_rate)]
+    return _draw_masks(sites, generator, device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -212,12 +262,13 @@ def bert_encoder_params(generator, d_model, inner_size, n_layers):
 
 def bert_encoder_apply(params, x, attn_mask, nhead, act="gelu",
                        hidden_dropout=0.0, attn_dropout=0.0, generator=None,
-                       layer_norm_eps=1e-12):
+                       layer_norm_eps=1e-12, masks=None):
     """x [B, L, D]; attn_mask additive [B, 1, 1, L] (0 keep, -1e8 drop,
     module.py:96-101). Post-LN with the residual inside both sublayers;
     dropout on the attention probabilities and on both sublayer outputs,
-    drawn from `generator`."""
+    drawn from `generator`, or taken from `masks` (`bert_encoder_masks`)."""
     act_fn = ACT[act]
+    drop = _dropper(generator, masks)
     b, L, d = x.shape
     dh = d // nhead
 
@@ -230,16 +281,29 @@ def bert_encoder_apply(params, x, attn_mask, nhead, act="gelu",
         v = heads(x @ p["v_w"] + p["v_b"])
         logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(dh)
         attn = torch.softmax(logits + attn_mask, dim=-1)
-        attn = dropout(attn, attn_dropout, generator, rows=True)
+        attn = drop(attn, attn_dropout)
         ctx = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         h = ctx.transpose(1, 2).reshape(b, L, d) @ p["dense_w"] + p["dense_b"]
-        h = dropout(h, hidden_dropout, generator, rows=True)
+        h = drop(h, hidden_dropout)
         x = layer_norm(h + x, p["ln1_g"], p["ln1_b"], eps=layer_norm_eps)
 
         h = act_fn(x @ p["ff1_w"] + p["ff1_b"]) @ p["ff2_w"] + p["ff2_b"]
-        h = dropout(h, hidden_dropout, generator, rows=True)
+        h = drop(h, hidden_dropout)
         x = layer_norm(h + x, p["ln2_g"], p["ln2_b"], eps=layer_norm_eps)
     return x
+
+
+def bert_encoder_masks(params, shape, nhead, hidden_dropout, attn_dropout,
+                       generator, device, dtype):
+    """The dropout masks `bert_encoder_apply` draws from `generator` over an
+    x of `shape` [B, L, D], drawn in its order: per layer the attention
+    probabilities' [B, H, L, L] and both sublayer outputs'."""
+    b, L, d = shape
+    sites = []
+    for _ in params:
+        sites += [((b, nhead, L, L), attn_dropout),
+                  ((b, L, d), hidden_dropout), ((b, L, d), hidden_dropout)]
+    return _draw_masks(sites, generator, device, dtype)
 
 
 # ---------------------------------------------------------------------------

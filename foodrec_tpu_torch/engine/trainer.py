@@ -86,6 +86,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from foodrec_tpu_torch.common.step_graph import StepGraphs
 from foodrec_tpu_torch.data.device import build_eval_set
 from foodrec_tpu_torch.data.sampling import (
     sample_health_stratified_negatives,
@@ -185,6 +186,10 @@ class Trainer:
         self.mesh = make_mesh(config["mesh_shape"], model.device)
         if self.mesh is not None and self.mesh.size("model") > 1:
             model.shard_tables(self.mesh)
+        # one process on the card replays the models' loss blocks as CUDA
+        # graphs (common/step_graph.py); a mesh and the CPU run them eagerly
+        model.step_graphs = (StepGraphs() if self.mesh is None
+                             and model.device.type == "cuda" else None)
         # rank 0 writes the logs' files, checkpoints and top-k lists
         self.writer = self.mesh is None or self.mesh.rank == 0
         self.config = config

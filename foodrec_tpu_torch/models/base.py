@@ -66,6 +66,10 @@ def as_parameters(tree, device):
 class GeneralRecommender(nn.Module):
     # {name: (first row, full rows)} of the row-sharded tables
     row_shards = {}
+    # the StepGraphs (common/step_graph.py) a single-process Trainer on the
+    # card gives the model; CIKM_Model and SCHGN run their loss block
+    # through it, and every model runs eagerly without one
+    step_graphs = None
 
     def __init__(self, config, dataset):
         super().__init__()

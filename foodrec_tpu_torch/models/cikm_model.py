@@ -52,6 +52,7 @@ from foodrec_tpu_torch.common.module import (
     target_attention_apply,
     target_attention_params,
     transformer_encoder_apply,
+    transformer_encoder_masks,
     transformer_encoder_params,
 )
 from foodrec_tpu_torch.models import register
@@ -164,7 +165,28 @@ class CIKM_Model(GeneralRecommender):
                        weight=None):
         """(mf, health, kd, reg) for one batch of int64 ids [B]; `generator`
         draws the encoder's dropout. The losses take the JAX epoch's weighted
-        formulas, with `weight` (the padded final batch's) or ones."""
+        formulas, with `weight` (the padded final batch's) or ones. With
+        `step_graphs` (a single-process Trainer's on the card) the dropout
+        masks are drawn here, after the propagation, and `_loss_block` runs
+        through it."""
+        user_all, item_all, _ = self.forward()
+        args = (user, pos_item, neg_item, weight, user_all, item_all)
+        if self.step_graphs is None:
+            return self._loss_block(*args, generator=generator)
+        masks = transformer_encoder_masks(
+            self.encoder, (2 * user.shape[0], self.ingre_codes.shape[1],
+                           self.embedding_size),
+            self.nhead, self.attn_dropout, generator, user_all.device,
+            user_all.dtype)
+        return self.step_graphs.run(self, self._loss_block,
+                                    args + tuple(masks))
+
+    def _loss_block(self, user, pos_item, neg_item, weight, user_all,
+                    item_all, *masks, generator=None):
+        """calculate_loss after the propagation, from the propagated
+        `user_all` and `item_all`: the encoder's dropout takes `masks`
+        (`transformer_encoder_masks`), or without them draws from
+        `generator`."""
         weight = self.sample_weight(user, weight)
         w2 = torch.cat([weight, weight])
         items2 = torch.cat([pos_item, neg_item])              # [2B]
@@ -173,15 +195,14 @@ class CIKM_Model(GeneralRecommender):
         codes = RowIds(ingredients)
         ingre_num = self.ingre_num[items2]                    # [2B]
         health_level = self.health_mh[items2]                 # [2B, H]
-
-        user_all, item_all, _ = self.forward()
         ingre_table = self.ingre_embedding
 
         # ingredient transformer (cikm_model.py:228-238)
         encoded = transformer_encoder_apply(
             self.encoder, gather_rows(ingre_table, codes), self.nhead,
             pad_mask=ingredients == self.n_ingredients, act=self.hidden_act,
-            drop_rate=self.attn_dropout, generator=generator)
+            drop_rate=self.attn_dropout, generator=generator,
+            masks=masks or None)
 
         # multimodal queries (cikm_model.py:240-246)
         mm_query = torch.stack(

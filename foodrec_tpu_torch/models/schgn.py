@@ -46,7 +46,9 @@ from foodrec_tpu_torch.common.init import (
 )
 from foodrec_tpu_torch.common.loss import l2_loss
 from foodrec_tpu_torch.common.module import (
+    apply_dropout_mask,
     bert_encoder_apply,
+    bert_encoder_masks,
     bert_encoder_params,
     dropout,
 )
@@ -198,11 +200,12 @@ class SCHGN(GeneralRecommender):
         return (weights[..., None, :] @ comps)[..., 0, :]
 
     def _score(self, tables, users, items, generator=None, training=False,
-               codes=None):
+               codes=None, mask=None):
         """compute_score (schgn.py:234-268) for int64 `users` and `items`
         that broadcast against each other; `training` applies the score
-        dropout, drawn from `generator`. `codes`: the items' ingredient
-        codes as a `RowIds` whose sorted order other gathers share."""
+        dropout, drawn from `generator`, and a pre-drawn `mask` applies it
+        in its stead. `codes`: the items' ingredient codes as a `RowIds`
+        whose sorted order other gathers share."""
         with span("score"):
             u_gcn, i_gcn, g_gcn, h_gcn = tables
             if codes is None:
@@ -225,7 +228,9 @@ class SCHGN(GeneralRecommender):
             item_att = self._attention_component_level(u_emb, comps)
             ui = torch.cat([u_emb, item_att, u_emb * item_att], dim=-1)
             hidden = ui @ self.W_concat["w"] + self.W_concat["b"]
-            if training:
+            if mask is not None:
+                hidden = apply_dropout_mask(hidden, mask, 0.5)
+            elif training:
                 hidden = dropout(hidden, 0.5, generator, rows=True)
             out = F.relu(hidden) @ self.output_mlp["w"]
             return out.reshape(lead)
@@ -235,20 +240,27 @@ class SCHGN(GeneralRecommender):
         """Masked-ingredient prediction (schgn.py:208-232) on sequences
         masked on the device."""
         with span("ssl"):
-            seqs = ssl_mask_ingredients(
-                self.ingre_codes[items], self.ingre_num[items],
-                self.n_ingredients, generator, masked_p=self.masked_p)
+            seqs = self._ssl_seqs(items, generator)
             return self._ssl_loss_from_seqs(g_gcn_table, *seqs, generator)
 
+    def _ssl_seqs(self, items, generator):
+        """The items' (masked, positive, negative) ingredient sequences,
+        drawn on the device."""
+        return ssl_mask_ingredients(
+            self.ingre_codes[items], self.ingre_num[items],
+            self.n_ingredients, generator, masked_p=self.masked_p)
+
     def _ssl_loss_from_seqs(self, g_gcn_table, masked_seq, pos_seq, neg_seq,
-                            generator):
+                            generator=None, masks=None):
+        """The SSL loss of given sequences; the encoder's dropout draws from
+        `generator`, or takes `masks` (`bert_encoder_masks`)."""
         ingre_emb = gather_rows(g_gcn_table, masked_seq)
         attn_mask = ((masked_seq == self.n_ingredients).to(ingre_emb.dtype)
                      * -1e8)[:, None, None, :]
         enc = bert_encoder_apply(
             self.encoder, ingre_emb, attn_mask, self.nhead,
             act=self.hidden_act, hidden_dropout=self.hidden_dropout,
-            attn_dropout=self.attn_dropout, generator=generator)
+            attn_dropout=self.attn_dropout, generator=generator, masks=masks)
         ingre_table = self._ingre_table()
         mip = enc @ self.mip_norm["w"] + self.mip_norm["b"]
 
@@ -270,17 +282,55 @@ class SCHGN(GeneralRecommender):
         padded final batch's) or ones. Test seams, as the JAX package's:
         `deterministic` turns off the score dropout only, and
         `ssl_seqs=(masked, pos, neg)` replaces the SSL sequences drawn on
-        the device."""
+        the device. With `step_graphs` (a single-process Trainer's on the
+        card) every draw is taken here, after the propagation, in the same
+        order (`_loss_draws`), and `_loss_block` runs through it."""
+        args = (user, pos_item, neg_item, weight, *self._gcn())
+        if self.step_graphs is None:
+            return self._loss_block(*args, None, None, *(ssl_seqs or ()),
+                                    generator=generator,
+                                    training=not deterministic)
+        draws = self._loss_draws(pos_item, generator, not deterministic,
+                                 ssl_seqs)
+        return self.step_graphs.run(self, self._loss_block, args + draws)
+
+    def _loss_draws(self, pos_item, generator, training, ssl_seqs):
+        """The step's draws in the order the loss takes them: the
+        positives' and the negatives' score dropout masks [B, D] (None
+        without `training`); with the SSL on, its (masked, positive,
+        negative) sequences (`ssl_seqs` where given) and its encoder's
+        dropout masks."""
+        b, d = pos_item.shape[0], self.embedding_size
+        ones = self.user_embed.new_ones((b, d))
+        draws = tuple(dropout(ones, 0.5, generator, rows=True) if training
+                      else None for _ in "pn")
+        if not self.use_ssl:
+            return draws
+        seqs = (tuple(ssl_seqs) if ssl_seqs is not None
+                else self._ssl_seqs(pos_item, generator))
+        masks = bert_encoder_masks(
+            self.encoder, (b, self.ingre_codes.shape[1], d), self.nhead,
+            self.hidden_dropout, self.attn_dropout, generator, ones.device,
+            ones.dtype)
+        return draws + seqs + tuple(masks)
+
+    def _loss_block(self, user, pos_item, neg_item, weight, u_gcn, i_gcn,
+                    g_gcn, h_gcn, pos_mask, neg_mask, *ssl_draws,
+                    generator=None, training=False):
+        """calculate_loss after the propagation, from its four tables and
+        the draws of `_loss_draws`; where one is missing it is drawn from
+        `generator`: the score dropout without `pos_mask` and `neg_mask`
+        (where `training`), the SSL's sequences without `ssl_draws`, its
+        encoder's dropout where `ssl_draws` holds the sequences alone."""
         weight = self.sample_weight(user, weight)
-        tables = self._gcn()
-        training = not deterministic
+        tables = (u_gcn, i_gcn, g_gcn, h_gcn)
         # the score's and the reg's gathers share each side's sorted codes
         pos_codes = RowIds(self.ingre_codes[pos_item])
         neg_codes = RowIds(self.ingre_codes[neg_item])
         pos_scores = self._score(tables, user, pos_item, generator, training,
-                                 codes=pos_codes)
+                                 codes=pos_codes, mask=pos_mask)
         neg_scores = self._score(tables, user, neg_item, generator, training,
-                                 codes=neg_codes)
+                                 codes=neg_codes, mask=neg_mask)
         bpr = -batch_sum(F.logsigmoid(pos_scores - neg_scores) * weight)
 
         ingre_table = self._ingre_table()
@@ -303,11 +353,11 @@ class SCHGN(GeneralRecommender):
 
         if not self.use_ssl:
             ssl = bpr.new_zeros(())
-        elif ssl_seqs is not None:
-            ssl = self.ssl * self._ssl_loss_from_seqs(tables[2], *ssl_seqs,
-                                                      generator)
+        elif ssl_draws:
+            ssl = self.ssl * self._ssl_loss_from_seqs(
+                g_gcn, *ssl_draws[:3], generator, masks=ssl_draws[3:] or None)
         else:
-            ssl = self.ssl * self._ssl_loss(tables[2], pos_item, generator)
+            ssl = self.ssl * self._ssl_loss(g_gcn, pos_item, generator)
         return bpr, reg, ssl
 
     # ------------------------------------------------------------------ eval

@@ -37,6 +37,8 @@ The spans, and where they sit:
     merge (engine/topk_evaluator.py)
   * `topk_metrics`: the host's metrics of a full-sort evaluation's top-k
     lists (`TopKEvaluator.evaluate` in `Trainer._valid_full_sort`)
+  * `step_graph`: one replay of a captured loss block's CUDA graph, its
+    forward or its backward (common/step_graph.py `_Replay`)
 
 No span name is a prefix of another: readers select ranges by prefix.
 Spans touch no tensor and no random stream.
@@ -51,7 +53,7 @@ PREFIX = "foodrec::"
 SPANS = ("train_step", "sampler", "forward", "backward", "optimizer",
          "spmm_forward", "eval_pass", "eval_cache", "eval_upload", "metrics",
          "topk_request", "topk_merge", "spmm_backward", "score", "ssl",
-         "topk_metrics", "gather_backward")
+         "topk_metrics", "gather_backward", "step_graph")
 
 _OFF = contextlib.nullcontext()
 

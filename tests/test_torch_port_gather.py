@@ -18,7 +18,8 @@ tests/test_torch_port_gather.py -q`):
 the kernel against the plain version at the main path's shapes within
 1e-6 * max|g| * sqrt(run), bit for bit against the emulation, the same bits
 on two runs, no host sync under `set_sync_debug_mode("error")`, and the
-launches a training step of each model counts."""
+kernel's launches in a training step of each model that replays its loss
+block as CUDA graphs, by name in a device trace of the step."""
 
 import os
 
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from foodrec_tpu_torch.common import step_graph
 from foodrec_tpu_torch.ops import _kernels, gather
 from foodrec_tpu_torch.ops.gather import (
     RowIds,
@@ -393,12 +395,33 @@ def test_kernel_matches_plain_and_repeats_on_the_card(name, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", sorted(STEP_GATHERS))
 def test_training_step_launches_on_the_card(cell, cuda_device, tmp_path):
+    from portbench.trace import Trace
+
     step = _toy_step(cell, cuda_device, str(tmp_path))
-    step()  # first step: builds the kernel
+    # the first step captures the loss block as CUDA graphs (common/
+    # step_graph.py), calling the kernel in its warm-up run and its capture
+    captures = step_graph.captures
     before = _kernels.launches["gather_rows_bwd"]
     step()
     torch.cuda.synchronize()
-    assert _kernels.launches["gather_rows_bwd"] - before == STEP_GATHERS[cell]
+    assert step_graph.captures == captures + 1
+    assert (_kernels.launches["gather_rows_bwd"] - before
+            == 2 * STEP_GATHERS[cell])
+    # the second replays them: the kernel's launches are nodes of the
+    # graphs, uncounted by `launches`, and counted by name in a device trace
+    before = _kernels.launches["gather_rows_bwd"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    names = [d[2] for d in Trace.load(path).device]
+    assert step_graph.captures == captures + 1
+    assert _kernels.launches["gather_rows_bwd"] == before
+    for kernel in ("gather_bwd_tiles", "gather_bwd_rows"):
+        assert sum(kernel in n for n in names) == STEP_GATHERS[cell], kernel
 
 
 @pytest.mark.cuda
