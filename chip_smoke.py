@@ -16,8 +16,9 @@ is also held to its plain version, which a mismatch stops:
 
   * spmm_csr: y = A @ x at d 64 on CIKM_Model's ui and ri graphs (the main
     path: one eval_cache takes 1 ui and 2 ri hops), on SCHGN's directed
-    graph and on a power-law user-item graph of Foodcom's size; bf16 mode
-    beside it
+    graph, on CLUSSL's two item-cluster graphs (29,943 items and 2,000
+    prototypes, the benchmark's 2 edges an item) and on a power-law
+    user-item graph of Foodcom's size; bf16 mode beside it
   * spmm_csr_bwd: the same kernel on A^T, the gradient of each product
     (SCHGN's A^T cuts one row a calorie level, through the fix-up kernel)
   * by_user_metrics: one 256 x 640 block of users, 8-16 positives a user
@@ -35,7 +36,9 @@ back to back with the L2 warm; bounds come from portbench/peaks.py. Each
 kernel's launches are counted over one call of the main path; a training
 step's on a step that replays the loss block's CUDA graphs, the kernels
 inside them by name from a device trace of it. The line
-before the last is the kernels' JSON record; the last line is {"ok": true,
+before the last is the kernels' JSON record, the SpMM's launches in a
+training step of CIKM_Model (replayed) and of CLUSSL (PRICAI_ModelX,
+eager) beside each other; the last line is {"ok": true,
 "device": {...}}. The kernels build into build/kernels/ (gitignored).
 """
 
@@ -55,6 +58,7 @@ QUEUE_CYCLES = 2_000_000  # ~1 ms of device clock cycles
 # the benchmark's configurations whose models give the graphs and the
 # launch counts
 CIKM_CONFIG, SCHGN_CONFIG = "cikm-foodcom", "schgn-foodcom"
+CLUSSL_CONFIG = "clussl-foodcom"
 # a power-law user-item graph at Foodcom's sizes: (users, items, draws)
 POWER_LAW = (7596, 29943, 192_000)
 METRIC_BLOCK, METRIC_NEG = (256, 640), 500
@@ -329,19 +333,23 @@ def log_spmm(direction, name, t):
         f"{t['max_err'][0]:.3e}, bf16 {t['max_err'][1]:.3e}")
 
 
-def spmm_entries(torch, kernels, spmm, cikm, schgn, flush):
+def spmm_entries(torch, kernels, spmm, cikm, schgn, clussl, flush):
     """The SpMM's forward and backward entries: times summed over the
     products of CIKM_Model's main path (1 ui + 2 ri hops), every graph's
     own under `per_graph`; launches counted over one eval_cache and one
-    replayed training step of CIKM_Model."""
+    replayed training step of CIKM_Model, and of CLUSSL under
+    `launches_a_step`."""
     from foodrec_tpu_torch.engine.trainer import Trainer
 
     (cfg, fd, model), (_, _, schgn_model) = cikm, schgn
+    clussl_cfg, clussl_fd, clussl_model = clussl
     hops = {"CIKM_Model.ui_prop": model.ui_layers,
             "CIKM_Model.ri_prop": model.n_layers}
     props = {"CIKM_Model.ui_prop": model.ui_prop,
              "CIKM_Model.ri_prop": model.ri_prop,
              "SCHGN.gcn_prop": schgn_model.gcn_prop,
+             "CLUSSL.image_prop": clussl_model.image_prop,
+             "CLUSSL.text_prop": clussl_model.text_prop,
              "power-law foodcom": spmm.Propagator(
                  zipf_adjacency(*POWER_LAW), impl="kernel", device="cuda")}
     if {p.impl for p in props.values()} != {"kernel"}:
@@ -358,6 +366,21 @@ def spmm_entries(torch, kernels, spmm, cikm, schgn, flush):
                                   train_batch(torch, fd.device_data, SEED))
     log(f"[launches] one CIKM_Model eval_cache {serve}; one training step "
         f"{step} (the step that captured its loss block {capture})")
+    # CLUSSL's eager step: 3 views x n_ri_layers + n_ui_layers products,
+    # and as many A^T products
+    products = 3 * clussl_model.n_ri_layers + clussl_model.n_ui_layers
+    clussl_trainer = Trainer(clussl_cfg, clussl_model)
+    clussl_batch = train_batch(torch, clussl_fd.device_data, SEED)
+    clussl_trainer.train_steps([clussl_batch])
+    clussl_step = launches_of(
+        torch, kernels, lambda: clussl_trainer.train_steps([clussl_batch]))
+    log(f"[launches] one CLUSSL training step {clussl_step}, {products} "
+        f"products forward and backward by its hops")
+    if (clussl_step.get("spmm_csr"), clussl_step.get("spmm_csr_bwd")) != (
+            products, products):
+        raise AssertionError(f"CLUSSL's step made {clussl_step}, not "
+                             f"{products} products each way")
+    steps = {"CIKM_Model": step, "CLUSSL": clussl_step}
 
     def entry(per_graph, **fields):
         return {"route": "cuda",
@@ -371,11 +394,15 @@ def spmm_entries(torch, kernels, spmm, cikm, schgn, flush):
     return step, [
         entry(fwd, name="spmm_csr", replaces="foodrec_tpu/ops/spmm.py:129",
               per="one CIKM_Model eval_cache: 2 ri_prop hops + 1 ui_prop hop",
-              launches=serve["spmm_csr"]),
+              launches=serve["spmm_csr"],
+              launches_a_step={k: v.get("spmm_csr", 0)
+                               for k, v in steps.items()}),
         entry(bwd, name="spmm_csr_bwd",
               replaces="foodrec_tpu/ops/spmm.py:129 (custom VJP :263-273)",
               per="one replayed CIKM_Model training step: 2 ri_prop + 1 "
-                  "ui_prop backward hops", launches=step["spmm_csr_bwd"])]
+                  "ui_prop backward hops", launches=step["spmm_csr_bwd"],
+              launches_a_step={k: v.get("spmm_csr_bwd", 0)
+                               for k, v in steps.items()})]
 
 
 def metrics_entry(torch, kernels, cikm, flush):
@@ -516,12 +543,13 @@ def main():
     card = device(torch)
     build(_kernels)
     t0 = time.perf_counter()
-    cikm, schgn = program(CIKM_CONFIG), program(SCHGN_CONFIG)
-    log(f"[setup] the benchmark's dataset and both models in "
+    cikm, schgn, clussl = (program(c) for c in (CIKM_CONFIG, SCHGN_CONFIG,
+                                                 CLUSSL_CONFIG))
+    log(f"[setup] the benchmark's dataset and three models in "
         f"{time.perf_counter() - t0:.1f} s")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     cikm_step, spmm_kernels = spmm_entries(torch, _kernels, spmm, cikm,
-                                           schgn, flush)
+                                           schgn, clussl, flush)
     record = {"kernels": [*spmm_kernels,
                           metrics_entry(torch, _kernels, cikm, flush),
                           gather_entry(torch, _kernels, cikm_step, schgn,

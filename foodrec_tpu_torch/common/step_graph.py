@@ -34,11 +34,17 @@ accumulators, which belong to the default stream, and a capture whose
 gradient flowed into them would make that stream wait on the capturing
 one, which CUDA refuses.
 
+A model may run several blocks: the graphs are keyed by the block's
+function and the signature, so two blocks of equal signatures keep their
+own graphs.
+
 Each replay, forward and backward, lies inside the span
-`foodrec::step_graph`. The spans opened inside the block (`score`, `ssl`,
-`gather_backward`) open only while it is captured, and the kernel launch
-counts of `ops/_kernels.py` count its launches only then. `captures`
-counts the captures.
+`foodrec::step_graph`; where `run` is given a span's name, the replay
+opens that span too, inside `step_graph`, as the block's eager call does
+around the call. The spans opened inside the block
+(`score`, `ssl`, `gather_backward`) open only while it is captured, and
+the kernel launch counts of `ops/_kernels.py` count its launches only
+then. `captures` counts the captures.
 
 On tensors off the card, `run` calls the block as it is.
 """
@@ -49,10 +55,17 @@ import itertools
 import torch
 from torch.autograd.function import once_differentiable
 
-from foodrec_tpu_torch.utils.trace import span
+from foodrec_tpu_torch.utils.trace import span as trace_span
 
 # captures since the caller last reset it
 captures = 0
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _span(name):
+    """The span `foodrec::<name>`, or a null context where `name` is
+    None."""
+    return _NO_SPAN if name is None else trace_span(name)
 
 
 def _storage(t):
@@ -83,10 +96,12 @@ def _stand_ins(model):
 class _Graph:
     """The two graphs of one signature and their static tensors: inputs,
     outputs, the outputs' gradients, and the gradients of the inputs and
-    parameters (None where the block gives none)."""
+    parameters (None where the block gives none); `span` names the span
+    each replay opens, or is None."""
 
-    def __init__(self, model, block, args):
+    def __init__(self, model, block, args, span=None):
         global captures
+        self.span = span
         self.inputs = [None if a is None
                        else a.detach().clone().requires_grad_(a.requires_grad)
                        for a in args]
@@ -154,7 +169,7 @@ class _Replay(torch.autograd.Function):
         for s, a in zip(graph.inputs, args):
             if s is not None:
                 s.copy_(a)
-        with span("step_graph"):
+        with trace_span("step_graph"), _span(graph.span):
             graph.fwd.replay()
         return tuple(o.detach() for o in graph.outputs)
 
@@ -171,7 +186,7 @@ class _Replay(torch.autograd.Function):
             return (None,) * (1 + len(graph.grads))
         for s, i in zip(graph.grad_outputs, graph.diff):
             s.copy_(grads[i])
-        with span("step_graph"):
+        with trace_span("step_graph"), _span(graph.span):
             graph.bwd.replay()
         return (None, *graph.grads_out())
 
@@ -188,10 +203,12 @@ class StepGraphs:
         self._graphs = {}
         self._where = None
 
-    def run(self, model, block, args):
+    def run(self, model, block, args, span=None):
         """block(*args) -> a tuple of tensors, the loss parts: `args` are
         the step's tensors (or None), and the block reads nothing else but
-        the model's parameters and buffers.
+        the model's parameters and buffers. With `span`, the block's call,
+        and on the card each of its replays, forward and backward, lies
+        inside `foodrec::<span>`.
 
         On the card a signature's graph holds one forward's activations
         and outputs: each forward is followed by its own backward before
@@ -200,16 +217,20 @@ class StepGraphs:
         static outputs, which the next replay overwrites; a caller that
         keeps them across steps keeps a copy."""
         if not (self._capture and args[0].is_cuda):
-            return block(*args)
+            with _span(span):
+                return block(*args)
         params = [p for p in model.parameters() if p.requires_grad]
         where = tuple(t.data_ptr()
                       for t in itertools.chain(params, model.buffers()))
         if where != self._where:
             self._graphs.clear()
             self._where = where
-        key = tuple(None if a is None else (a.shape, a.dtype, a.requires_grad)
-                    for a in args)
+        # a bound method is made anew at each access: key by its function
+        key = (getattr(block, "__func__", block),) + tuple(
+            None if a is None else (a.shape, a.dtype, a.requires_grad)
+            for a in args)
         graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[key] = _Graph(model, block, args)
+            graph = self._graphs[key] = _Graph(model, block, args, span)
         return _Replay.apply(graph, *args, *params)
+

@@ -13,6 +13,14 @@ products. The self-supervised term is the distance correlation between the
 three item views over the batch's positive and negative rows
 (pricai_modelx.py:263, 409-437).
 
+A training step runs eagerly: the propagation (`forward`, the three views
+inside the span `foodrec::item_views`), then `_ssl_block`, the views'
+batch rows and their distance correlations (inside `foodrec::dcor`), and
+`_bpr_block`, BPR and the reg. It replays no CUDA graph: replayed, the
+step (2.4 ms of device time) is paced by the host's dispatch of the rest
+of the step, which swings by a fifth between runs, so the benchmark's
+cell, whose bound follows the eager step's rate, could not hold it.
+
 `use_center_embedding` starts the prototypes from the pretrained k-means
 centers `mm_cluster/{image,text}_center.npy`, projected by `image_trs` /
 `text_trs` (pricai_modelx.py:75-86); otherwise they are free tables. The
@@ -40,6 +48,7 @@ from foodrec_tpu_torch.ops.graph import (
 )
 from foodrec_tpu_torch.ops.spmm import propagate_mean
 from foodrec_tpu_torch.parallel.mesh import gather_batch_rows
+from foodrec_tpu_torch.utils.trace import span
 
 
 @register("PRICAI_ModelX")
@@ -104,11 +113,11 @@ class PRICAI_ModelX(GeneralRecommender):
             ego = torch.cat([self.item_embedding, extra], dim=0)
             return propagate_mean(prop, ego, self.n_ri_layers)[: self.n_items]
 
-        item_ingre = view(self.ingre_prop, self.ingre_embedding[:-1])
-        item_image = view(self.image_prop, self._prototypes("image"))
-        item_text = view(self.text_prop, self._prototypes("text"))
-
-        item_emb = item_ingre + item_image + item_text
+        with span("item_views"):
+            item_ingre = view(self.ingre_prop, self.ingre_embedding[:-1])
+            item_image = view(self.image_prop, self._prototypes("image"))
+            item_text = view(self.text_prop, self._prototypes("text"))
+            item_emb = item_ingre + item_image + item_text
         ui_ego = torch.cat([self.user_embedding, item_emb], dim=0)
         ui_all = propagate_mean(self.ui_prop, ui_ego, self.n_ui_layers)
         return (ui_all[: self.n_users], ui_all[self.n_users:],
@@ -118,24 +127,37 @@ class PRICAI_ModelX(GeneralRecommender):
                        weight=None):
         """(mf, loss_cl * dCor, reg) for one batch of int64 ids [B];
         nothing is random."""
-        weight = self.sample_weight(user, weight)
-        all_item = torch.cat([pos_item, neg_item])
-        user_all, item_all, (image_v, text_v, ingre_v) = self.forward()
-        # dCor reads the global batch's rows (all of them under a mesh)
-        item_image = gather_batch_rows(image_v[all_item])
-        item_text = gather_batch_rows(text_v[all_item])
-        item_ingre = gather_batch_rows(ingre_v[all_item])
+        user_all, item_all, views = self.forward()
+        with span("dcor"):
+            (cl,) = self._ssl_block(torch.cat([pos_item, neg_item]), *views)
+        mf_loss, reg_loss = self._bpr_block(user, pos_item, neg_item, weight,
+                                            user_all, item_all)
+        return mf_loss, cl, reg_loss
 
+    def _ssl_block(self, all_item, item_image, item_text, item_ingre):
+        """(loss_cl * dCor,): the distance correlations of the three item
+        views over the batch's positive and negative rows [2B]."""
+        # dCor reads the global batch's rows (all of them under a mesh)
+        image = gather_batch_rows(item_image[all_item])
+        text = gather_batch_rows(item_text[all_item])
+        ingre = gather_batch_rows(item_ingre[all_item])
+        cl = (correlation_distance(image, text)
+              + correlation_distance(image, ingre)
+              + correlation_distance(ingre, text))
+        return (self.loss_cl * cl,)
+
+    def _bpr_block(self, user, pos_item, neg_item, weight, user_all,
+                   item_all):
+        """(mf, reg): BPR over the propagated tables and reg_weight times
+        the L2 norms of the batch's raw user and item rows."""
+        weight = self.sample_weight(user, weight)
         u_e = user_all[user]
         mf_loss = bpr_loss((u_e * item_all[pos_item]).sum(1),
                            (u_e * item_all[neg_item]).sum(1), weight=weight)
-        cl = (correlation_distance(item_image, item_text)
-              + correlation_distance(item_image, item_ingre)
-              + correlation_distance(item_ingre, item_text))
         reg_loss = self.reg_weight * emb_loss(
             self.user_embedding[user],
             self.item_embedding[pos_item],
             self.item_embedding[neg_item],
             weight=weight,
         )
-        return mf_loss, self.loss_cl * cl, reg_loss
+        return mf_loss, reg_loss

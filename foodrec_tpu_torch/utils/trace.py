@@ -39,6 +39,9 @@ The spans, and where they sit:
     lists (`TopKEvaluator.evaluate` in `Trainer._valid_full_sort`)
   * `step_graph`: one replay of a captured loss block's CUDA graph, its
     forward or its backward (common/step_graph.py `_Replay`)
+  * `item_views`, `dcor`: CLUSSL's three item-side views, their
+    propagation and sum; its distance-correlation block; each around the
+    forward's call (models/pricai_modelx.py `forward`, `calculate_loss`)
 
 No span name is a prefix of another: readers select ranges by prefix.
 Spans touch no tensor and no random stream.
@@ -53,7 +56,8 @@ PREFIX = "foodrec::"
 SPANS = ("train_step", "sampler", "forward", "backward", "optimizer",
          "spmm_forward", "eval_pass", "eval_cache", "eval_upload", "metrics",
          "topk_request", "topk_merge", "spmm_backward", "score", "ssl",
-         "topk_metrics", "gather_backward", "step_graph")
+         "topk_metrics", "gather_backward", "step_graph", "item_views",
+         "dcor")
 
 _OFF = contextlib.nullcontext()
 

@@ -293,6 +293,9 @@ IRREGULAR = {
     # Foodcom's items and 2,000 clusters, 6 an item as upstream k-means
     "clussl clusters d64": (64, lambda rng: _item_clusters(rng, 29943, 2000,
                                                            6)),
+    # the same at the benchmark's 2 an item (portbench/data/synthetic.py)
+    "clussl clusters degree 2 d64": (64, lambda rng: _item_clusters(
+        rng, 29943, 2000, 2)),
 }
 
 

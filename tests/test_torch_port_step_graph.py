@@ -8,8 +8,10 @@ On the CPU: the encoders' pre-drawn masks (`transformer_encoder_masks`,
 `bert_encoder_masks`) give their generator path's outputs and gradients bit
 for bit and leave the generator where it leaves it; the two models'
 prelude-and-block loss parts and gradients equal their generator path's
-bit for bit, with and without the padded tail's weight; a Trainer on the
-CPU gives its model no graphs.
+bit for bit, with and without the padded tail's weight, and CLUSSL's,
+which draws and replays nothing, equal with StepGraphs set and without; a
+Trainer on the CPU gives its model no graphs; a block given a span's name
+runs inside that span.
 
 Marked `cuda`, on the card (`python3 -m pytest -m cuda
 tests/test_torch_port_step_graph.py -q`): one epoch of three steps (two
@@ -21,7 +23,11 @@ bit for bit, with one capture a signature; replays make no host sync under
 functions, as the benchmark's does, sees the same draws on the graphs'
 steps as on the generator path's; a `load_state_dict` keeps the graphs,
 and a rebound parameter drops them; a backward after a later forward of
-its graph raises.
+its graph raises; two blocks of one model whose arguments have the same
+signature keep a graph each, and a fresh bound method finds its block's;
+the replays of a block given a span's name open `foodrec::<span>` inside
+`foodrec::step_graph`, forward and backward, and the device time of the
+graph's nodes counts under it.
 """
 
 import pytest
@@ -33,6 +39,9 @@ from test_torch_port_gather import TOY
 from torch_port_fixtures import cuda_device, device  # noqa: F401
 
 CELLS = ("cikm-foodcom-train", "schgn-foodcom-train")
+# the split's cells, and CLUSSL's, whose step replays nothing and must
+# give the same bits with StepGraphs set (a Trainer on the card sets it)
+SPLIT_CELLS = CELLS + ("clussl-foodcom-train",)
 # three steps an epoch: two batches of BATCH and the tail
 DATA = dict(TOY, n_users=200)
 BATCH = 512
@@ -62,8 +71,10 @@ def _build(cell_name, device, cache, **model_config):
     try:
         cell = harness.Cell(cell_name)
         cell.config["data"]["params"] = dict(DATA)
-        cell.config["model_config"].update(train_batch_size=BATCH,
-                                           **model_config)
+        mc = cell.config["model_config"]
+        mc.update(train_batch_size=BATCH, **model_config)
+        if "n_cluster" in mc:  # CLUSSL's prototypes: the toy's clusters
+            mc["n_cluster"] = DATA["n_clusters"]
         ctx = harness.Context(cell, 2 ** 31 + 11, device)
     finally:
         harness.CACHE = saved
@@ -144,7 +155,7 @@ def _step(model, batch, gen, weight=None):
 
 
 @pytest.mark.parametrize("weighted", [False, True], ids=["ones", "tail"])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SPLIT_CELLS)
 def test_split_loss_equals_the_generator_path(cell, weighted, device,
                                               tmp_path, monkeypatch):
     _, model, batch = _build(cell, device, str(tmp_path))
@@ -152,7 +163,9 @@ def test_split_loss_equals_the_generator_path(cell, weighted, device,
     if weighted:
         weight = (torch.arange(batch[0].shape[0], device=device)
                   < batch[0].shape[0] - 7).float()
-    # the block runs as it is, off the graphs
+    # the block runs as it is, off the graphs; CLUSSL draws nothing and
+    # replays nothing, so its two sides are its step without StepGraphs
+    # and with them, which must give the same bits
     monkeypatch.setattr(StepGraphs, "_capture", False)
     runs = []
     for graphs in (None, StepGraphs()):
@@ -332,3 +345,96 @@ def test_backward_after_a_later_forward_raises(cell, cuda_device, tmp_path):
     with pytest.raises(RuntimeError, match="after another forward"):
         sum(first).backward()
     sum(second).backward()
+
+
+# ------------------------------------------------------- keys and spans
+
+
+class _TwoBlocks(torch.nn.Module):
+    """Two loss blocks of one model whose arguments have one signature."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.arange(1.0, 5.0, device=device))
+
+    def double(self, x):
+        return ((2 * x * self.w).sum(),)
+
+    def triple(self, x):
+        return ((3 * x * self.w).sum(),)
+
+
+def test_a_named_block_runs_inside_its_span():
+    """Off the card `run` calls the block as it is, inside the span it is
+    given, and inside no span where it is given none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from foodrec_tpu_torch.utils import trace
+
+    model, graphs = _TwoBlocks("cpu"), StepGraphs()
+    x = torch.ones(4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        (a,) = graphs.run(model, model.double, (x,), span="dcor")
+        (b,) = graphs.run(model, model.triple, (x,))
+    names = [e.name for e in prof.events() if e.name.startswith(trace.PREFIX)]
+    assert names == ["foodrec::dcor"]
+    assert (a.item(), b.item()) == (20.0, 30.0)
+
+
+@pytest.mark.cuda
+def test_blocks_of_equal_signatures_keep_a_graph_each(cuda_device):
+    model, graphs = _TwoBlocks(cuda_device), StepGraphs()
+    x = torch.ones(4, device=cuda_device, requires_grad=True)
+    before = step_graph.captures
+    for step in range(3):
+        # a fresh bound method each step finds its block's graphs
+        (a,) = graphs.run(model, model.double, (x,))
+        (b,) = graphs.run(model, model.triple, (x,))
+        model.w.grad = None
+        (a + b).backward()
+        assert (a.item(), b.item()) == (20.0, 30.0)
+        assert torch.equal(model.w.grad.cpu(), torch.full((4,), 5.0))
+    assert step_graph.captures == before + 2
+
+
+@pytest.mark.cuda
+def test_named_replays_open_their_span_inside_step_graph(cuda_device,
+                                                         tmp_path):
+    """Replayed steps, traced: a block given a span's name opens it once
+    inside each of its two `foodrec::step_graph` replays (the forward on
+    the driving thread, the backward on autograd's), and the graphs' nodes
+    launched by those replays count as device time under it; a block given
+    none opens none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench import spans, trace
+
+    model, graphs = _TwoBlocks(cuda_device), StepGraphs()
+    x = torch.ones(4, device=cuda_device, requires_grad=True)
+
+    def step():
+        (a,) = graphs.run(model, model.double, (x,), span="dcor")
+        (b,) = graphs.run(model, model.triple, (x,))
+        (a + b).backward()
+
+    step()  # captures
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        step()
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    tr = trace.Trace.load(path)
+    ranges = {}
+    for s, e, name, tid in tr.ranges:
+        ranges.setdefault(name, []).append((s, e, tid))
+    replays, dcor = ranges["foodrec::step_graph"], ranges["foodrec::dcor"]
+    assert len(replays) == 8 and len(dcor) == 4
+    for s, e, tid in dcor:
+        assert any(s0 <= s and e <= e0 and tid == t0
+                   for s0, e0, t0 in replays), (s, e, tid)
+    assert len({tid for _, _, tid in dcor}) == 2
+    assert spans.launches_inside(tr, "foodrec::dcor") > 0
+    assert spans.device_seconds_inside(tr, "foodrec::dcor") > 0
