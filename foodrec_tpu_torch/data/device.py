@@ -31,13 +31,17 @@ def _round_up(x, m):
     return -(-x // m) * m
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class EvalSet:
     """Padded per-user candidate lists: [positives, negatives-minus-dup-pos].
 
     Mirrors EvalByUserDataloader (dataloader.py:232-238): candidates =
     pos_items + (negatives with the first occurrence of each positive
     removed); the first `n_pos[u]` slots are the positives.
+
+    Compared and hashed by identity: the by-user evaluator keeps a set's
+    device arrays under it (engine/evaluator.py), so its arrays must not
+    be written after it is built.
     """
 
     users: np.ndarray   # int32 [U]

@@ -24,9 +24,15 @@ On the card a block's metrics are one launch of the hand-written kernel
 `csrc/by_user_metrics.cu` (`ops/_kernels.py` `by_user_metrics`), which
 gives the plain version's values bit for bit; CPU tensors take the plain
 version, `by_user_metrics_plain`.
+
+An EvalSet's arrays are copied to the device, int64 and padded to whole
+blocks, on the first pass over the set on that device at that block size,
+and held for the later passes while the set lives (`copies` counts the
+copies); so an EvalSet's arrays must not be written after it is built.
 """
 
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -38,6 +44,13 @@ NEG_INF = -1e30
 TOP_K = 20  # the ranks Recall and NDCG read (the kernel's kMaxK)
 METRICS = ("auc", "recall@10", "recall@20", "ndcg@10", "ndcg@20")
 _LOG2_E = torch.tensor(1.0 / np.log(2.0), dtype=torch.float32)
+
+# eval sets copied to a device since the caller last reset it
+copies = 0
+
+# EvalSet -> {(device, block size): its padded device arrays}; an entry
+# goes with its set
+_resident = weakref.WeakKeyDictionary()
 
 
 def _order_key(bits):
@@ -129,6 +142,35 @@ def by_user_metrics_plain(scores, n_pos, n_cand, neg_num):
     return out
 
 
+def _device_arrays(eval_set, batch_size, device):
+    """(users, cand, n_pos, n_cand) of `eval_set` on `device`, int64, each
+    padded with zero rows to a multiple of `batch_size`: copied on the
+    first call for the set, device and block size, and held while the set
+    lives. A set that cannot key a weak dictionary (a `SimpleNamespace`
+    cannot be weakly referenced, the JAX package's EvalSet cannot be
+    hashed) is copied on every call."""
+    global copies
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        held = _resident.setdefault(eval_set, {})
+    except TypeError:
+        held = {}
+    key = (device, batch_size)
+    if key not in held:
+        pad = (-eval_set.n_users) % batch_size
+
+        def put(a):
+            a = torch.as_tensor(a).to(device=device, dtype=torch.int64)
+            return torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+
+        held[key] = (put(eval_set.users), put(eval_set.cand),
+                     put(eval_set.n_pos), put(eval_set.n_cand))
+        copies += 1
+    return held[key]
+
+
 def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
                      device="cuda", return_per_user=False):
     """Run the by-user eval over a padded EvalSet on `device`.
@@ -147,15 +189,9 @@ def evaluate_by_user(score_fn, eval_set, neg_num, batch_size=256,
     package returns them (evaluator.py:114-137).
     """
     u = eval_set.n_users
-    pad = (-u) % batch_size
-
-    def put(a):
-        a = torch.as_tensor(a).to(device=device, dtype=torch.int64)
-        return torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
-
     with span("eval_upload"):
-        users, cand = put(eval_set.users), put(eval_set.cand)
-        n_pos, n_cand = put(eval_set.n_pos), put(eval_set.n_cand)
+        users, cand, n_pos, n_cand = _device_arrays(eval_set, batch_size,
+                                                    device)
 
     blocks, preds = [], []
     for s in range(0, len(users), batch_size):

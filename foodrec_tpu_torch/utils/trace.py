@@ -31,8 +31,9 @@ The spans, and where they sit:
     (models/schgn.py `SCHGN._score`, `SCHGN._ssl_loss`)
   * `eval_pass`, `eval_cache`: one evaluation; its graph propagation
     (`Trainer._valid`, `_score_fn`, `_valid_full_sort`)
-  * `eval_upload`, `metrics`: a by-user pass's arrays copied to the device;
-    a block's metrics (engine/evaluator.py `evaluate_by_user`)
+  * `eval_upload`, `metrics`: a by-user pass's lookup of its eval set's
+    device arrays, and their copy to the device where they are not held
+    yet; a block's metrics (engine/evaluator.py `evaluate_by_user`)
   * `topk_request`, `topk_merge`: one full-sort top-k call; one chunk's
     merge (engine/topk_evaluator.py)
   * `topk_metrics`: the host's metrics of a full-sort evaluation's top-k
@@ -45,6 +46,16 @@ The spans, and where they sit:
 
 No span name is a prefix of another: readers select ranges by prefix.
 Spans touch no tensor and no random stream.
+
+Beside the spans, module-level counters that a caller reads as
+differences, always on:
+
+  * `launches` (ops/_kernels.py): the hand-written kernels' launches, by
+    name
+  * `captures` (common/step_graph.py): loss blocks captured as CUDA graphs
+  * `copies` (engine/evaluator.py): eval sets copied to a device by the
+    by-user evaluation: one for a set, device and block size while the set
+    lives, one a pass for a set that cannot be held
 """
 
 import contextlib
